@@ -1,0 +1,485 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the tpu3drec_torch port (one NVIDIA H100).
+
+    python3 chip_smoke.py
+
+Phases, each of which raises (and so exits non-zero) on failure:
+  1. the card's name and power limit; build every kernel in
+     tpu3drec_torch/csrc with nvcc (one process per source, in parallel);
+  2. each kernel against its plain PyTorch version on the card, on the
+     inputs the main path gives it: `ori_desc` on all five octaves of the
+     full batch, `knn2` int8 on the full batch of pairs and float32 on two;
+  3. the main path: `make_pair_fn(max_features=2048, num_hypotheses=256)`
+     on 96 pairs of 480x640 images, each a synthetic photo and a known
+     similarity warp of it. Launch counts are read around one call, then
+     five timed calls give pairs/s; the result must pass a quality bar,
+     recover the known warps, and agree on one pair with the same step
+     run on the CPU through the plain versions;
+  4. one JSON line with every kernel's launches, error, time, bound and
+     the plain and library yardsticks;
+  5. last line: {"ok": true, "device": {...}}.
+
+Without CUDA, or without the package beside it, it fails before printing
+any result. It imports nothing of JAX.
+"""
+
+import json
+import math
+import os
+import subprocess
+import time
+
+import numpy as np
+
+H, W = 480, 640
+BATCH = 96
+MAX_FEATURES = 2048
+NUM_HYPOTHESES = 256
+REPS = 5
+SEED = 0
+
+# NVIDIA H100 SXM data-sheet peaks (dense)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS = 67e12
+PEAK_INT8_OPS = 1979e12
+
+
+def fail(msg):
+    raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def synthetic_photo(h, w, seed):
+    """Rectangles and discs on a noisy background, normalised to [0, 1]."""
+    rng = np.random.default_rng(seed)
+    img = np.zeros((h, w), np.float32)
+    for _ in range(60):
+        y, x = rng.integers(5, h - 40), rng.integers(5, w - 40)
+        hh, ww = rng.integers(8, 80), rng.integers(8, 80)
+        img[y:y + hh, x:x + ww] += rng.uniform(-0.4, 0.4)
+    yy, xx = np.mgrid[0:h, 0:w]
+    for _ in range(20):
+        cy, cx = rng.integers(20, h - 20), rng.integers(20, w - 20)
+        r = rng.integers(5, 30)
+        img += rng.uniform(-0.3, 0.3) * (((yy - cy) ** 2 + (xx - cx) ** 2) < r * r)
+    img += 0.02 * rng.standard_normal((h, w)).astype(np.float32)
+    img -= img.min()
+    img /= img.max()
+    return img.astype(np.float32)
+
+
+def warp_batch(torch, imgs, seed):
+    """Similarity warps about the image centre: returns (warped, H) with
+    H (B, 3, 3) mapping img1 pixel coords to img2's."""
+    B, h, w = imgs.shape
+    rng = np.random.default_rng(seed)
+    ang = np.deg2rad(rng.uniform(-12, 12, B))
+    sc = rng.uniform(0.9, 1.05, B)
+    tx, ty = rng.uniform(-10, 10, B), rng.uniform(-10, 10, B)
+    c = np.array([(w - 1) / 2, (h - 1) / 2])
+    Hs = np.zeros((B, 3, 3))
+    for i in range(B):
+        A = sc[i] * np.array([[np.cos(ang[i]), -np.sin(ang[i])],
+                              [np.sin(ang[i]), np.cos(ang[i])]])
+        Hs[i, :2, :2] = A
+        Hs[i, :2, 2] = c - A @ c + [tx[i], ty[i]]
+        Hs[i, 2, 2] = 1
+    Hinv = torch.tensor(np.linalg.inv(Hs), dtype=torch.float32, device=imgs.device)
+    ys, xs = torch.meshgrid(torch.arange(h, device=imgs.device, dtype=torch.float32),
+                            torch.arange(w, device=imgs.device, dtype=torch.float32),
+                            indexing="ij")
+    p = torch.stack([xs, ys, torch.ones_like(xs)], -1).reshape(-1, 3)
+    src = torch.einsum("bij,nj->bni", Hinv, p)
+    sx = src[..., 0] / src[..., 2]
+    sy = src[..., 1] / src[..., 2]
+    grid = torch.stack([2 * sx / (w - 1) - 1, 2 * sy / (h - 1) - 1], -1)
+    out = torch.nn.functional.grid_sample(
+        imgs[:, None], grid.reshape(B, h, w, 2), mode="bilinear",
+        padding_mode="zeros", align_corners=True)[:, 0]
+    return out.contiguous(), Hs
+
+
+def cuda_ms(torch, fn, reps=REPS):
+    """Mean ms per call from CUDA events, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def corner_error(Hest, Hgt, h, w):
+    """Max distance (px) between the two maps over the image corners."""
+    c = np.array([[0, 0, 1], [w - 1, 0, 1], [0, h - 1, 1], [w - 1, h - 1, 1]], float).T
+    a = Hest @ c
+    b = Hgt @ c
+    return float(np.max(np.linalg.norm(a[:2] / a[2] - b[:2] / b[2], axis=0)))
+
+
+def ori_desc_work(torch, oc, angle, chunk=4096):
+    """What this run's valid slots need of `ori_desc`, counted from their
+    own meta and angles with the plain version's geometry: band pixels
+    that pass the orientation mask |u|,|v| <= 4.5, core pixels inside the
+    descriptor support, the 4x4 cells that hold such a pixel, and the
+    distinct stack pixels all of those read. Pixels outside the octave
+    image are zeros and count as no work.
+    Returns (n_band, n_core, n_cell, n_stack_px)."""
+    from tpu3drec_torch.ops import pallas_sample as ps
+    L, h, w = oc.dxs.shape
+    dev = oc.dxs.device
+    needed = torch.zeros(L * h * w, dtype=torch.bool, device=dev)
+    n_band = n_core = n_cell = 0
+    jj = torch.arange(ps.CORE_W, device=dev)
+    valid = torch.nonzero(oc.meta[:, 3] >= 0)[:, 0]
+    for s in range(0, valid.numel(), chunk):
+        sel = valid[s:s + chunk]
+        k = sel.numel()
+        x, y, scl, lay, xs0, ys0, ysb = ps._geometry(oc.meta[sel], oc.hp, oc.fb)
+        cols = xs0[:, None] + jj                                     # (k, 128)
+        col_in = (cols >= 0) & (cols < w)
+        rows_b = ysb[:, None] + torch.arange(ps.ORI_H, device=dev)   # (k, 56)
+        rows_c = ys0[:, None] + torch.arange(ps.CORE_H, device=dev)  # (k, 88)
+        rx = cols.to(torch.float32) - x[:, None]
+        ub = rx / scl[:, None]
+        vb = (rows_b.to(torch.float32) - y[:, None]) / scl[:, None]
+        band = (((ub.abs() <= ps.ORI_RADIUS_FCTR) & col_in)[:, None, :]
+                & ((vb.abs() <= ps.ORI_RADIUS_FCTR)
+                   & (rows_b >= 0) & (rows_b < h))[:, :, None])
+        ca = torch.cos(angle[sel])[:, None, None]
+        sa = torch.sin(angle[sel])[:, None, None]
+        inv_hw = (1.0 / (ps.DESC_SCL_FCTR * scl))[:, None, None]
+        ry = (rows_c.to(torch.float32) - y[:, None])[:, :, None]
+        ud = (ca * rx[:, None, :] + sa * ry) * inv_hw
+        vd = (-sa * rx[:, None, :] + ca * ry) * inv_hw
+        core = ((vd + 1.5 > -1) & (vd + 1.5 < ps.DESC_D)
+                & (ud + 1.5 > -1) & (ud + 1.5 < ps.DESC_D)
+                & col_in[:, None, :] & ((rows_c >= 0) & (rows_c < h))[:, :, None])
+        n_band += int(band.sum())
+        n_core += int(core.sum())
+        n_cell += int(core.reshape(k, ps.CH, ps.CELL, ps.CW, ps.CELL)
+                      .any(4).any(2).sum())
+        for rows, m in ((rows_b, band), (rows_c, core)):
+            idx = (lay[:, None, None] * (h * w)
+                   + rows.clamp(0, h - 1)[:, :, None] * w
+                   + cols.clamp(0, w - 1)[:, None, :])
+            needed[idx[m]] = True
+    return n_band, n_core, n_cell, int(needed.sum())
+
+
+def check_ori_desc(torch, samples):
+    """ori_desc kernel vs plain on every octave; returns the kernel line
+    fields (time and bound summed over the octaves of one call)."""
+    from tpu3drec_torch.ops import pallas_sample as ps
+    n_valid = n_bad = 0
+    max_err = 0.0
+    ms = plain_ms = 0.0
+    bytes_ = ops = 0.0
+    work = [0, 0, 0, 0]
+    for oc in samples:
+        args = (oc.dxs, oc.dys, oc.meta, oc.hp, oc.fb)
+        a_k, r_k = ps.ori_desc(*args)
+        a_p, r_p = ps.ori_desc_plain(*args)
+        torch.cuda.synchronize()
+        valid = oc.meta[:, 3] >= 0
+        inv = ~valid
+        if not (torch.all(a_k[inv] == 0) and torch.all(r_k[inv] == 0)):
+            fail("ori_desc: invalid slots are not zero")
+        d_k = ps.normalize_descriptors(r_k)[valid]
+        d_p = ps.normalize_descriptors(r_p)[valid]
+        da = (a_k[valid] - a_p[valid]).abs()
+        da = torch.minimum(da, 2 * math.pi - da)
+        cos = (d_k * d_p).sum(1) / torch.clamp(
+            d_k.norm(dim=1) * d_p.norm(dim=1), min=1e-9)
+        good = (da < 1e-3) & (cos > 0.9999)
+        if not (torch.isfinite(a_k).all() and torch.isfinite(r_k).all()):
+            fail("ori_desc: non-finite output")
+        nv = int(valid.sum())
+        n_valid += nv
+        n_bad += nv - int(good.sum())
+        if good.any():
+            max_err = max(max_err, float((d_k[good] - d_p[good]).abs().max()))
+        ms += cuda_ms(torch, lambda: ps.ori_desc(*args))
+        plain_ms += cuda_ms(torch, lambda: ps.ori_desc_plain(*args), reps=1)
+        n_band, n_core, n_cell, n_px = ori_desc_work(torch, oc, a_p)
+        work = [a + b for a, b in zip(work, (n_band, n_core, n_cell, n_px))]
+        K = oc.meta.shape[0]
+        # meta in, angle and raw out for every slot; each needed pixel of
+        # both bf16 stacks read once
+        bytes_ += K * (16 + 4 + 128 * 4) + n_px * 2 * 2
+        # ~20 flops per band pixel in the mask (offsets, weight, magnitude,
+        # atan2, two bins), ~45 per core pixel in the support (rotation,
+        # weight, magnitude, atan2, 8 tents), 3 per (cell, output) for the
+        # <= 4 spatial bins x 8 orientations a cell feeds, and ~700 per
+        # slot for the two smoothings and the peak
+        ops += n_band * 20 + n_core * 45 + n_cell * 32 * 3 + nv * 700
+    frac_bad = n_bad / max(n_valid, 1)
+    print(f"ori_desc vs plain: {n_valid} valid slots over {len(samples)} "
+          f"octaves; {n_bad} outside angle<1e-3 rad & cos>0.9999 "
+          f"({100 * frac_bad:.3f}%, bar <= 0.5%); max |desc err| on the rest "
+          f"{max_err:.3e}")
+    print(f"ori_desc work this run needs: {work[0]} band px in the mask, "
+          f"{work[1]} core px in the support, {work[2]} cells, {work[3]} "
+          f"distinct stack px; {bytes_ / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP")
+    if n_valid == 0 or frac_bad > 0.005:
+        fail("ori_desc disagrees with its plain version")
+    t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_OPS * 1e3
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None)
+
+
+def check_knn2(torch, desc, mask, B):
+    """knn2 kernel vs plain: int8 on all B pairs (bit-equal), float32 on two
+    pairs (indices equal except near-ties, values within 1e-4)."""
+    from tpu3drec_torch.ops import match as mt
+    from tpu3drec_torch.ops import pallas_match as pm
+    q = mt.quantize_u8(desc)
+    a, b = q[:B].contiguous(), q[B:].contiguous()
+    n2 = b.to(torch.int32).square().sum(-1, dtype=torch.int32)
+    m2 = mask[B:].contiguous()
+    i_k, v_k = pm.knn2_raw(a, b, n2, m2)
+    i_p, v_p = pm.knn2_plain(a, b, n2, m2)
+    torch.cuda.synchronize()
+    if not (torch.equal(i_k, i_p) and torch.equal(v_k, v_p)):
+        bad = int((i_k != i_p).any(-1).sum())
+        fail(f"knn2 int8: {bad} rows differ from the plain version")
+    max_err = float((v_k.double() - v_p.double()).abs().max())
+    print(f"knn2 int8 vs plain at {tuple(a.shape)} x {tuple(b.shape)}: "
+          f"indices and squared distances bit-equal (max |err| {max_err})")
+
+    f1, f2 = desc[:2].contiguous(), desc[B:B + 2].contiguous()
+    sq2 = (f2 * f2).sum(-1)
+    mf = mask[B:B + 2].contiguous()
+    fi_k, fv_k = pm.knn2_raw(f1, f2, sq2, mf)
+    fi_p, fv_p = pm.knn2_plain(f1, f2, sq2, mf)
+    sq1 = (f1 * f1).sum(-1)[..., None]
+    dk = torch.sqrt(torch.clamp(fv_k + sq1, min=0))
+    dp = torch.sqrt(torch.clamp(fv_p + sq1, min=0))
+    if not torch.allclose(dk, dp, rtol=1e-4, atol=1e-4):
+        fail("knn2 f32: distances differ from the plain version")
+    # padded (all-zero) rows of desc1 tie exactly: judge valid rows only
+    gap = dp[..., 1] - dp[..., 0]
+    clear = (gap > 1e-4 * dp[..., 1] + 1e-4) & mask[:2]
+    if not torch.equal(fi_k[..., 0][clear], fi_p[..., 0][clear]):
+        fail("knn2 f32: best indices differ away from near-ties")
+    print(f"knn2 f32 vs plain at {tuple(f1.shape)}: distances within rtol/atol "
+          f"1e-4; best indices equal on all {int(clear.sum())} valid rows "
+          f"without a near-tie (of {int(mask[:2].sum())} valid rows)")
+
+    ms = cuda_ms(torch, lambda: pm.knn2_raw(a, b, n2, m2))
+    plain_ms = cuda_ms(torch, lambda: pm.knn2_plain(a, b, n2, m2), reps=2)
+    af, bf = a.to(torch.float32), b.to(torch.float32)
+
+    def library():
+        d = n2[:, None, :] - 2 * torch.matmul(af, bf.transpose(1, 2))
+        d = torch.where(m2[:, None, :], d, torch.full_like(d, 3.4e38))
+        return torch.topk(d, 2, dim=-1, largest=False)
+
+    library_ms = cuda_ms(torch, library, reps=2)
+    Bp, N, D = a.shape
+    M = b.shape[1]
+    # masked columns never win and need no work: count the valid ones
+    m_valid = int(m2.sum())
+    bytes_ = Bp * N * D + m_valid * D + Bp * M * 5 + Bp * N * 2 * 8
+    ops = 2.0 * N * m_valid * D
+    t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_INT8_OPS * 1e3
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=library_ms)
+
+
+def _device_us(ev, self_only):
+    name = "self_device_time_total" if self_only else "device_time_total"
+    us = getattr(ev, name, None)
+    if us is None:
+        us = getattr(ev, name.replace("device", "cuda"), 0)
+    return us
+
+
+def profile_call(torch, fn, top=12):
+    """One profiled call (torch.profiler): its wall time, the summed device
+    time of its kernels and so the device's busy share of that same call,
+    the pair step's stage ranges, and device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    rows, stages = [], []
+    for ev in prof.key_averages():
+        on_device = str(getattr(ev, "device_type", "")).endswith("CUDA")
+        if ev.key.startswith("pair_step."):
+            # a host range: host span, and the device time of the kernels
+            # launched inside it; a device-side range: its span there
+            stages.append((ev.key, "device span" if on_device else "host range",
+                           ev.cpu_time_total / 1e3,
+                           _device_us(ev, on_device) / 1e3))
+            continue
+        if not on_device:
+            continue        # host-side ops; their kernels are listed apart
+        us = _device_us(ev, True)
+        if us > 0:
+            rows.append((us / 1e3, ev.count, ev.key))
+    if not rows:
+        print("profiler: no device time recorded")
+        return
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    print(f"profiled call: {wall:.1f} ms wall, {busy:.1f} ms summed kernel "
+          f"time ({100 * busy / wall:.1f}% busy, {wall - busy:.1f} ms idle, "
+          f"this call under the profiler)")
+    for key, kind, host_ms, dev_ms in sorted(stages):
+        print(f"  stage {key} ({kind}): host {host_ms:.3f} ms, device "
+              f"{dev_ms:.3f} ms")
+    print("top device time by kernel:")
+    for ms, n, name in rows[:top]:
+        print(f"  {ms:9.3f} ms  x{n:<5d} {name[:100]}")
+
+
+def main():
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "tpu3drec_torch", "csrc")):
+        fail("the tpu3drec_torch package is not beside chip_smoke.py")
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False")
+    import tpu3drec_torch
+    from tpu3drec_torch import _nvcc
+    from tpu3drec_torch.ops import pallas_match as pm
+    from tpu3drec_torch.ops import pallas_sample as ps
+    from tpu3drec_torch.ops.sift import detect_and_compute, octave_samples
+
+    # ---- 1. card and build
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    print(card)
+    print(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    reports = _nvcc.build()
+    print(f"built {', '.join(reports)} with nvcc in "
+          f"{time.perf_counter() - t0:.1f} s (parallel)")
+    for name, text in reports.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+    dev = torch.device("cuda")
+
+    # ---- inputs: 96 photos and a known similarity warp of each
+    t0 = time.perf_counter()
+    img1 = torch.tensor(np.stack([synthetic_photo(H, W, SEED + i)
+                                  for i in range(BATCH)]), device=dev)
+    img2, Hgt = warp_batch(torch, img1, SEED + 1000)
+    print(f"made {BATCH} pairs of {H}x{W} in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 2. kernels against their plain versions at main-path shapes
+    imgs = torch.cat([img1, img2])
+    samples = list(octave_samples(imgs, MAX_FEATURES))
+    fields = {"ori_desc": check_ori_desc(torch, samples)}
+    del samples
+    _, _, _, _, desc, mask = detect_and_compute(imgs, MAX_FEATURES)
+    fields["knn2"] = check_knn2(torch, desc, mask, BATCH)
+    del desc, mask, imgs
+    torch.cuda.synchronize()
+
+    # ---- 3. the main path at full size
+    pair_fn = tpu3drec_torch.make_pair_fn(max_features=MAX_FEATURES,
+                                          num_hypotheses=NUM_HYPOTHESES)
+    ps.ori_desc.launches = 0
+    pm.knn2_raw.launches = 0
+    out = pair_fn(img1, img2)
+    torch.cuda.synchronize()
+    launches = {"ori_desc": ps.ori_desc.launches, "knn2": pm.knn2_raw.launches}
+    print(f"launches in one pair-step call: {launches}")
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"the main path never launched the {name} kernel")
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(REPS):
+        out = pair_fn(img1, img2)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / REPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"pair step: {BATCH / dt:.3f} pairs/s ({dt * 1e3:.1f} ms per batch "
+          f"of {BATCH}, mean of {REPS}); peak device memory {peak_gb:.2f} GB")
+
+    nm = out["num_matches"].float()
+    ni = out["num_inliers"].float()
+    ratio = out["inlier_ratio"]
+    Hs = out["homography"].cpu().double().numpy()
+    if not all(torch.isfinite(t).all() for t in (nm, ni, ratio)) \
+            or not np.isfinite(Hs).all() or Hs.shape != (BATCH, 3, 3):
+        fail("non-finite or misshapen pair-step output")
+    errs = np.array([corner_error(Hs[i], Hgt[i], H, W) for i in range(BATCH)])
+    print(f"mean num_matches {float(nm.mean()):.2f}, num_inliers "
+          f"{float(ni.mean()):.2f}, inlier_ratio {float(ratio.mean()):.4f}; "
+          f"corner error vs the known warp: median {np.median(errs):.3f} px, "
+          f"{int((errs < 2.0).sum())}/{BATCH} pairs under 2 px")
+    if float(ratio.mean()) <= 0.8 or float(nm.mean()) <= 30:
+        fail("quality bar: mean inlier ratio must exceed 0.8 and mean "
+             "matches 30 on the warped pairs")
+    if (errs < 2.0).mean() < 0.9:
+        fail("fewer than 90% of the pairs recover the known warp to 2 px")
+
+    profile_call(torch, lambda: pair_fn(img1, img2))
+
+    # the same step on the CPU (plain versions) agrees on pair 0, given
+    # the same RANSAC uniforms
+    from tpu3drec_torch.ops.ransac import draw_uniform
+    t0 = time.perf_counter()
+    u = draw_uniform(NUM_HYPOTHESES, 4, torch.Generator().manual_seed(SEED))
+    ref = pair_fn(img1[:1].cpu(), img2[:1].cpu(), u=u)
+    got = {k: v[0].cpu() for k, v in pair_fn(img1[:1], img2[:1], u=u).items()}
+    tol = max(2, 0.02 * float(ref["num_matches"][0]))
+    dm = abs(int(got["num_matches"]) - int(ref["num_matches"][0]))
+    di = abs(int(got["num_inliers"]) - int(ref["num_inliers"][0]))
+    ce = corner_error(got["homography"].double().numpy(),
+                      ref["homography"][0].double().numpy(), H, W)
+    print(f"pair 0, card vs CPU plain path: matches {int(got['num_matches'])} "
+          f"vs {int(ref['num_matches'][0])}, inliers {int(got['num_inliers'])} "
+          f"vs {int(ref['num_inliers'][0])}, homography corners within "
+          f"{ce:.3f} px ({time.perf_counter() - t0:.1f} s)")
+    if dm > tol or di > tol or ce > 0.5:
+        fail("the card's pair step disagrees with the CPU plain path")
+
+    # ---- 4. the kernels line
+    sources = {
+        "ori_desc": ("tpu3drec_torch/csrc/ori_desc.cu",
+                     "tpu3drec/ops/pallas_sample.py:541"),
+        "knn2": ("tpu3drec_torch/csrc/knn2.cu",
+                 "tpu3drec/ops/pallas_match.py:91"),
+    }
+    kernels = []
+    for name, (src, rep) in sources.items():
+        f = fields[name]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": rep, "launches": launches[name],
+                        "max_abs_err": f["max_abs_err"], "ms": f["ms"],
+                        "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+                        "bound_by": f["bound_by"],
+                        "library_ms": f["library_ms"]})
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,59 @@
+"""tpu3drec_torch — the PyTorch/CUDA port of tpu3drec for NVIDIA Hopper.
+
+A second package beside the JAX reference `tpu3drec`: the same
+mask-padded data model and the same SIFT pair step (detect -> int8 2-NN
+ratio match -> homography RANSAC), with the reference's Pallas TPU
+kernels rewritten as hand-written CUDA C++ kernels for sm_90a
+(`csrc/`). Every kernel has a plain PyTorch version of the same function
+beside it; a wrapper runs the plain version only for CPU tensors and
+launches the kernel (or raises) for CUDA tensors.
+
+Device policy: entry points that take numpy images take `device=None`,
+which means "cuda"; without CUDA they raise unless the caller passes
+`device="cpu"`. Functions that take tensors run on the tensors' device.
+
+Precision policy: float32 matrix products run at full float32. TF32 is
+switched off on import — the counterpart of the reference's
+`jax_default_matmul_precision=highest` — because the DoG contrast gate
+(~0.013) and the homography solvers need every f32 bit.
+
+This package imports torch, numpy and the standard library only; it never
+imports jax or the JAX package.
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+
+from tpu3drec_torch.core.device import resolve_device  # noqa: E402
+from tpu3drec_torch.core.types import (  # noqa: E402
+    DescriptorKind,
+    Features,
+    Matches,
+    MethodResult,
+    ScoreType,
+)
+from tpu3drec_torch.api import (  # noqa: E402
+    detect_features,
+    match_images,
+    prepare_image,
+    quick_match,
+)
+from tpu3drec_torch.pair_step import make_pair_fn  # noqa: E402
+
+__all__ = [
+    "DescriptorKind",
+    "Features",
+    "Matches",
+    "MethodResult",
+    "ScoreType",
+    "detect_features",
+    "make_pair_fn",
+    "match_images",
+    "prepare_image",
+    "quick_match",
+    "resolve_device",
+]

@@ -1,0 +1,120 @@
+"""Fused descriptor distance + running top-2: the `knn2` kernel.
+
+Port of `tpu3drec/ops/pallas_match.py:fused_knn2`, extended with an int8
+element type for the main path's `l2_int8` metric. For every row of `a`
+and every pair in the batch it computes
+
+    raw[n, m] = bnorm[m] - 2 * <a[n], b[m]>     (masked columns: BIG)
+
+and returns the two smallest `raw` values per row with their column
+indices, smallest first, ties to the lowest index (the reference's
+`_top2_min`). The N x M matrix never reaches device memory. `bnorm` is
+|b|^2 for the L2 metrics (the row constant |a|^2 is added back by the
+caller, as in the reference) and zero for the +-1 Hamming metric.
+
+Element types: int8 with exact int32 accumulation (BIG = int32 max), or
+float32 (BIG = 3.4e38).
+
+`knn2_raw` is the wrapper: CPU tensors go to `knn2_plain`, CUDA tensors
+to the hand-written kernel `csrc/knn2.cu` (or raise).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+INT_BIG = 2 ** 31 - 1
+F32_BIG = 3.4e38
+
+
+def _big(dtype):
+    return INT_BIG if dtype == torch.int8 else F32_BIG
+
+
+def knn2_plain(a: torch.Tensor, b: torch.Tensor, bnorm: torch.Tensor,
+               mask2: torch.Tensor):
+    """Plain PyTorch version: (idx (B, N, 2) int32, val (B, N, 2))."""
+    if a.dtype == torch.int8:
+        # int8 products summed over D <= 1024 stay below 2**24, so a
+        # float32 product is exact whatever its summation order
+        dot = torch.matmul(a.to(torch.float32),
+                           b.to(torch.float32).transpose(1, 2)).to(torch.int32)
+    else:
+        dot = torch.matmul(a, b.transpose(1, 2))
+    raw = bnorm[:, None, :] - 2 * dot
+    big = torch.full((), _big(a.dtype), dtype=raw.dtype, device=raw.device)
+    raw = torch.where(mask2[:, None, :], raw, big)
+    i1 = torch.argmin(raw, dim=-1, keepdim=True)
+    v1 = raw.gather(-1, i1)
+    cols = torch.arange(raw.shape[-1], device=raw.device)
+    masked = torch.where(cols == i1, big, raw)
+    i2 = torch.argmin(masked, dim=-1, keepdim=True)
+    v2 = masked.gather(-1, i2)
+    return (torch.cat([i1, i2], -1).to(torch.int32),
+            torch.cat([v1, v2], -1))
+
+
+def _check(a, b, bnorm, mask2):
+    if a.dtype not in (torch.int8, torch.float32) or b.dtype != a.dtype:
+        raise TypeError(f"knn2: descriptors must both be int8 or float32, "
+                        f"got {a.dtype} and {b.dtype}")
+    want = torch.int32 if a.dtype == torch.int8 else torch.float32
+    if bnorm.dtype != want or mask2.dtype != torch.bool:
+        raise TypeError(f"knn2: bnorm must be {want} and mask2 bool")
+    if a.ndim != 3 or b.ndim != 3 or a.shape[0] != b.shape[0] \
+            or a.shape[2] != b.shape[2]:
+        raise ValueError(f"knn2: need (B, N, D) and (B, M, D), got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    if bnorm.shape != b.shape[:2] or mask2.shape != b.shape[:2]:
+        raise ValueError("knn2: bnorm and mask2 must be (B, M)")
+    if a.dtype == torch.int8 and a.shape[2] > 1024:
+        raise ValueError("knn2: int8 descriptors longer than 1024")
+    if not all(t.device == a.device for t in (b, bnorm, mask2)):
+        raise ValueError("knn2: tensors on different devices")
+    if not all(t.is_contiguous() for t in (a, b, bnorm, mask2)):
+        raise ValueError("knn2: tensors must be contiguous")
+
+
+def _launch(a, b, bnorm, mask2):
+    from tpu3drec_torch._nvcc import load
+    lib = load("knn2")
+    fn = lib.knn2_i8_launch if a.dtype == torch.int8 else lib.knn2_f32_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    B, N, D = a.shape
+    M = b.shape[1]
+    if a.dtype == torch.int8 and D % 4:
+        # the kernel reads 4 int8 per word; zero columns change no dot
+        a = torch.nn.functional.pad(a, (0, 4 - D % 4))
+        b = torch.nn.functional.pad(b, (0, 4 - D % 4))
+    words = a.shape[2] // 4 if a.dtype == torch.int8 else D
+    idx = torch.empty(B, N, 2, device=a.device, dtype=torch.int32)
+    val = torch.empty(B, N, 2, device=a.device, dtype=bnorm.dtype)
+    m8 = mask2.to(torch.uint8)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(a.data_ptr(), b.data_ptr(), bnorm.data_ptr(), m8.data_ptr(),
+                 B, N, M, words, idx.data_ptr(), val.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"knn2 kernel launch failed: CUDA error {err}")
+    return idx, val
+
+
+def knn2_raw(a: torch.Tensor, b: torch.Tensor, bnorm: torch.Tensor,
+             mask2: torch.Tensor):
+    """Top-2 of `bnorm - 2 a.b` per row: (idx (B, N, 2) int32, raw
+    values (B, N, 2) int32 for int8 input, float32 for float32 input)."""
+    _check(a, b, bnorm, mask2)
+    if a.device.type == "cpu":
+        return knn2_plain(a, b, bnorm, mask2)
+    if a.device.type != "cuda":
+        raise ValueError(f"knn2: unsupported device {a.device}")
+    out = _launch(a, b, bnorm, mask2)
+    knn2_raw.launches += 1
+    return out
+
+
+knn2_raw.launches = 0
