@@ -15,9 +15,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
      five timed calls give pairs/s; the result must pass a quality bar,
      recover the known warps, and agree on one pair with the same step
      run on the CPU through the plain versions;
-  4. one JSON line with every kernel's launches, error, time, bound and
+  4. the dense stage at `bench.py:bench_dense`'s configuration: 3 views
+     of 480x640 (a synthetic photo rolled by -12, 0 and 12 px, f = 600,
+     so a fronto-parallel plane at depth 6), 64 disparities, weighted
+     fusion, TSDF at 64. The `sgm` kernel is held against its plain
+     version on the 4 cost volumes this run hands it; launch counts are
+     read around one `run_complete_pipeline` call, then three timed calls
+     give MP-depth/s of the stereo stage and each stage's seconds; the
+     result must pass a quality bar and the stereo stage must agree with
+     the same stage run on the CPU through the plain versions; one
+     profiled call of the stereo stage and one of the whole pipeline;
+  5. one JSON line with every kernel's launches, error, time, bound and
      the plain and library yardsticks;
-  5. last line: {"ok": true, "device": {...}}.
+  6. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or without the package beside it, it fails before printing
 any result. It imports nothing of JAX.
@@ -37,6 +47,16 @@ MAX_FEATURES = 2048
 NUM_HYPOTHESES = 256
 REPS = 5
 SEED = 0
+
+# the dense stage: bench.py:bench_dense's folder and pipeline settings
+DENSE_BX = (-0.12, 0.0, 0.12)
+DENSE_F = 600.0
+DENSE_DEPTH = DENSE_F * 0.12 / 12      # 6.0: 12 px of disparity
+NUM_DISPARITIES = 64
+TSDF_RESOLUTION = 64
+DENSE_REPS = 3
+DENSE_VALID_BAR = 0.95      # fused valid fraction (CPU run: PERF.md)
+SGM_FLOPS_PER_ELEMENT = 39  # 9 per DP step x 4 directions + 3 sums
 
 # NVIDIA H100 SXM data-sheet peaks (dense)
 PEAK_BYTES_PER_S = 3.35e12
@@ -304,10 +324,11 @@ def _device_us(ev, self_only):
     return us
 
 
-def profile_call(torch, fn, top=12):
+def profile_call(torch, fn, prefix, top=12):
     """One profiled call (torch.profiler): its wall time, the summed device
     time of its kernels and so the device's busy share of that same call,
-    the pair step's stage ranges, and device time by kernel."""
+    the stage ranges whose names start with `prefix`, and device time by
+    kernel."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -319,7 +340,7 @@ def profile_call(torch, fn, top=12):
     rows, stages = [], []
     for ev in prof.key_averages():
         on_device = str(getattr(ev, "device_type", "")).endswith("CUDA")
-        if ev.key.startswith("pair_step."):
+        if ev.key.startswith(prefix):
             # a host range: host span, and the device time of the kernels
             # launched inside it; a device-side range: its span there
             stages.append((ev.key, "device span" if on_device else "host range",
@@ -347,10 +368,198 @@ def profile_call(torch, fn, top=12):
         print(f"  {ms:9.3f} ms  x{n:<5d} {name[:100]}")
 
 
+def check_sgm(torch, vols):
+    """sgm kernel vs plain on the main path's own volumes (B, D, H, W);
+    returns the kernel line fields. `ms` is the whole CUDA route (layouts,
+    the one launch, the add back); the parts are printed beside it."""
+    from tpu3drec_torch.ops import pallas_sgm as psg
+    got = psg.sgm_aggregate_batch(vols)
+    ref = psg.sgm_aggregate_batch_plain(vols)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        fail("sgm: non-finite output")
+    max_err = float((got - ref).abs().max())
+    equal = bool(torch.equal(got, ref))
+    print(f"sgm vs plain at {tuple(vols.shape)}: max |err| {max_err} "
+          f"(bit-equal: {equal}; bar rtol 1e-6 / atol 1e-5)")
+    if not torch.allclose(got, ref, rtol=1e-6, atol=1e-5):
+        fail("sgm disagrees with its plain version")
+    del got, ref
+    v_h, v_v = psg.sgm_layouts(vols)
+    ms = cuda_ms(torch, lambda: psg.sgm_aggregate_batch(vols))
+    kernel_ms = cuda_ms(torch, lambda: psg.sgm_axes(v_h, v_v))
+    layout_ms = cuda_ms(torch, lambda: psg.sgm_layouts(vols))
+    del v_h, v_v
+    plain_ms = cuda_ms(torch, lambda: psg.sgm_aggregate_batch_plain(vols),
+                       reps=1)
+    n = vols.numel()
+    # the volumes read once and the result written once, float32
+    bytes_ = 2 * n * 4
+    ops = SGM_FLOPS_PER_ELEMENT * n
+    t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_OPS * 1e3
+    print(f"sgm: {ms:.3f} ms per call = layouts {layout_ms:.3f} + kernel "
+          f"{kernel_ms:.3f} (one launch, both axes) + add back "
+          f"{ms - layout_ms - kernel_ms:.3f}; plain {plain_ms:.3f} ms; "
+          f"bound {bytes_ / 1e6:.1f} MB -> {t_bytes:.4f} ms, "
+          f"{ops / 1e9:.2f} GFLOP -> {t_ops:.4f} ms")
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None)
+
+
+def dense_folder(h, w, seed):
+    """bench_dense's folder: one photo rolled by round(100 bx) px for each
+    baseline bx, identity rotations, f = 600."""
+    K = np.array([[DENSE_F, 0, w / 2], [0, DENSE_F, h / 2], [0, 0, 1]])
+    base = synthetic_photo(h, w, seed)
+    images, cams = {}, {}
+    for i, bx in enumerate(DENSE_BX):
+        name = f"v{i}.png"
+        images[name] = np.roll(base, int(round(bx * 100)), axis=1)
+        cams[name] = {"camera_matrix": K.tolist(),
+                      "rotation": np.eye(3).tolist(),
+                      "translation": [bx, 0.0, 0.0]}
+    sparse = {"camera_poses": cams, "points_3d": [[0.0, 0.0, DENSE_DEPTH]]}
+    return sparse, images, f"v{len(DENSE_BX) // 2}.png"
+
+
+def stereo_inputs(torch, sparse, images, ref, device):
+    """The arguments `run_complete_pipeline` hands
+    `stereo_depth_pairs_fused` for this folder."""
+    cams = sparse["camera_poses"]
+    others = [n for n in cams if n != ref]
+    K = np.asarray(cams[ref]["camera_matrix"], np.float32)
+    t_ref = np.asarray(cams[ref]["translation"], np.float32)
+    ts = np.stack([np.asarray(cams[n]["translation"], np.float32) - t_ref
+                   for n in others])
+    eye = np.stack([np.eye(3, dtype=np.float32)] * len(others))
+    return (torch.tensor(images[ref], device=device),
+            torch.tensor(np.stack([images[n] for n in others]), device=device),
+            torch.tensor(K), torch.tensor(np.stack([K] * len(others))),
+            torch.tensor(eye), torch.tensor(ts))
+
+
+def capture_sgm_inputs(torch, args):
+    """The volumes the fused stereo stage hands `sgm_aggregate_batch`,
+    recorded during one call."""
+    from tpu3drec_torch.ops import stereo as st
+    seen = []
+    real = st.sgm_aggregate_batch
+
+    def recorder(volumes, *a, **kw):
+        seen.append(volumes.clone())
+        return real(volumes, *a, **kw)
+
+    st.sgm_aggregate_batch = recorder
+    try:
+        st.stereo_depth_pairs_fused(*args, num_disparities=NUM_DISPARITIES)
+    finally:
+        st.sgm_aggregate_batch = real
+    if len(seen) != 1:
+        fail(f"expected one SGM call in the stereo stage, saw {len(seen)}")
+    return seen[0]
+
+
+def run_dense(torch, kind, dev):
+    """Phase 4: the dense stage on the card; returns the sgm kernel line
+    fields with this run's launches."""
+    import tpu3drec_torch
+    from tpu3drec_torch.ops import pallas_match as pm
+    from tpu3drec_torch.ops import pallas_sample as ps
+    from tpu3drec_torch.ops import pallas_sgm as psg
+    from tpu3drec_torch.ops import stereo as st
+
+    sparse, images, ref = dense_folder(H, W, SEED + 7)
+    args = stereo_inputs(torch, sparse, images, ref, dev)
+    fields = check_sgm(torch, capture_sgm_inputs(torch, args))
+
+    pipe = tpu3drec_torch.DenseReconstructionPipeline(
+        num_disparities=NUM_DISPARITIES, fusion_method="weighted",
+        tsdf_resolution=TSDF_RESOLUTION)
+    pipe.run_complete_pipeline(sparse, images, reference_view=ref)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for i in range(DENSE_REPS):
+        if i == 0:
+            ps.ori_desc.launches = pm.knn2_raw.launches = 0
+            psg.sgm_aggregate_batch.launches = 0
+        res = pipe.run_complete_pipeline(sparse, images, reference_view=ref)
+        torch.cuda.synchronize()
+        if i == 0:
+            fields["launches"] = psg.sgm_aggregate_batch.launches
+        runs.append(res["timings_s"])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"launches in one dense run: sgm {fields['launches']}, ori_desc "
+          f"{ps.ori_desc.launches}, knn2 {pm.knn2_raw.launches}")
+    if fields["launches"] == 0:
+        fail("the dense path never launched the sgm kernel")
+    mp = W * H * (len(DENSE_BX) - 1) / 1e6
+    rates = sorted(mp / r["stereo"] for r in runs)
+    print(f"dense stereo stage: {float(np.median(rates))} MP-depth/s "
+          f"(median of {DENSE_REPS}, spread {rates[0]} .. {rates[-1]}; "
+          f"{len(DENSE_BX) - 1} pairs of {W}x{H}, {NUM_DISPARITIES} "
+          f"disparities) on {kind}; peak device memory {peak_gb:.2f} GB")
+    for key in runs[0]:
+        print(f"  stage {key}: " + ", ".join(f"{r[key]:.4f}" for r in runs)
+              + " s")
+
+    arr = pipe._arrays
+    depth = arr["depth"]
+    valid = depth > 0
+    med = float(np.median(depth[valid])) if valid.any() else 0.0
+    frac = res["depth"]["valid_fraction"]
+    print(f"fused depth: valid fraction {frac:.4f} (bar > "
+          f"{DENSE_VALID_BAR}), median {med:.5f} (plane at {DENSE_DEPTH}); "
+          f"{res['point_cloud']['num_points']} points; mesh "
+          f"{res['mesh']['method']} with {res['mesh']['num_faces']} faces")
+    if not np.isfinite(depth).all() or depth.shape != (H, W) \
+            or not np.isfinite(arr["points"]).all():
+        fail("non-finite or misshapen dense output")
+    if abs(med - DENSE_DEPTH) > 0.01 * DENSE_DEPTH or frac <= DENSE_VALID_BAR:
+        fail("quality bar: the fused depth must be valid on more than "
+             f"{DENSE_VALID_BAR} of the view with its median within 1% of "
+             f"{DENSE_DEPTH}")
+    if res["mesh"]["method"] != "tsdf" or res["mesh"]["num_faces"] <= 1000 \
+            or res["point_cloud"]["num_points"] <= 10000:
+        fail("quality bar: a TSDF mesh of > 1000 faces and > 10000 points")
+
+    # the same stereo stage on the CPU, through the plain versions
+    t0 = time.perf_counter()
+    cpu = st.stereo_depth_pairs_fused(*(a.cpu() for a in args),
+                                      num_disparities=NUM_DISPARITIES)
+    cpu_s = time.perf_counter() - t0
+    card = st.stereo_depth_pairs_fused(*args, num_disparities=NUM_DISPARITIES)
+    dv, cv = card["fused_valid"].cpu().numpy(), cpu["fused_valid"].numpy()
+    dd, cd = card["fused_depth"].cpu().numpy(), cpu["fused_depth"].numpy()
+    agree = float((dv == cv).mean())
+    both = dv & cv
+    close = bool(np.allclose(dd[both], cd[both], rtol=1e-4, atol=1e-4))
+    print(f"stereo stage, card vs CPU plain path ({cpu_s:.1f} s on the "
+          f"CPU): valid masks agree on {100 * agree:.4f}% (bar > 99.9%), "
+          f"CPU valid fraction {float(cv.mean()):.4f}, max |depth diff| "
+          f"where both valid {float(np.abs(dd - cd)[both].max()):.3e} "
+          f"(bar rtol/atol 1e-4)")
+    if agree <= 0.999 or not close:
+        fail("the card's stereo stage disagrees with the CPU plain path")
+
+    print("profiled stereo stage (stereo_depth_pairs_fused + the host "
+          "pull of its meta):")
+    profile_call(torch, lambda: st.stereo_depth_pairs_fused(
+        *args, num_disparities=NUM_DISPARITIES)["meta"].cpu(), "dense.")
+    print("profiled pipeline call (run_complete_pipeline):")
+    profile_call(torch, lambda: pipe.run_complete_pipeline(
+        sparse, images, reference_view=ref), "dense.", top=6)
+    return fields
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "tpu3drec_torch", "csrc")):
         fail("the tpu3drec_torch package is not beside chip_smoke.py")
+    t_main = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -358,6 +567,7 @@ def main():
     from tpu3drec_torch import _nvcc
     from tpu3drec_torch.ops import pallas_match as pm
     from tpu3drec_torch.ops import pallas_sample as ps
+    from tpu3drec_torch.ops import pallas_sgm as psg
     from tpu3drec_torch.ops.sift import detect_and_compute, octave_samples
 
     # ---- 1. card and build
@@ -400,8 +610,8 @@ def main():
     # ---- 3. the main path at full size
     pair_fn = tpu3drec_torch.make_pair_fn(max_features=MAX_FEATURES,
                                           num_hypotheses=NUM_HYPOTHESES)
-    ps.ori_desc.launches = 0
-    pm.knn2_raw.launches = 0
+    ps.ori_desc.launches = pm.knn2_raw.launches = 0
+    psg.sgm_aggregate_batch.launches = 0
     out = pair_fn(img1, img2)
     torch.cuda.synchronize()
     launches = {"ori_desc": ps.ori_desc.launches, "knn2": pm.knn2_raw.launches}
@@ -439,7 +649,7 @@ def main():
     if (errs < 2.0).mean() < 0.9:
         fail("fewer than 90% of the pairs recover the known warp to 2 px")
 
-    profile_call(torch, lambda: pair_fn(img1, img2))
+    profile_call(torch, lambda: pair_fn(img1, img2), "pair_step.")
 
     # the same step on the CPU (plain versions) agrees on pair 0, given
     # the same RANSAC uniforms
@@ -460,12 +670,18 @@ def main():
     if dm > tol or di > tol or ce > 0.5:
         fail("the card's pair step disagrees with the CPU plain path")
 
-    # ---- 4. the kernels line
+    # ---- 4. the dense stage
+    fields["sgm"] = run_dense(torch, kind, dev)
+    launches["sgm"] = fields["sgm"]["launches"]
+
+    # ---- 5. the kernels line
     sources = {
         "ori_desc": ("tpu3drec_torch/csrc/ori_desc.cu",
                      "tpu3drec/ops/pallas_sample.py:541"),
         "knn2": ("tpu3drec_torch/csrc/knn2.cu",
                  "tpu3drec/ops/pallas_match.py:91"),
+        "sgm": ("tpu3drec_torch/csrc/sgm.cu",
+                "tpu3drec/ops/pallas_sgm.py:117"),
     }
     kernels = []
     for name, (src, rep) in sources.items():
@@ -476,6 +692,8 @@ def main():
                         "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
                         "bound_by": f["bound_by"],
                         "library_ms": f["library_ms"]})
+    print(f"chip_smoke wall time: {time.perf_counter() - t_main:.1f} s "
+          f"(builds included)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

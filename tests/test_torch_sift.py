@@ -200,6 +200,9 @@ def test_features_and_matches_round_trip_with_reference(jax_ref):
 
 def test_port_imports_no_jax():
     code = ("import sys; import tpu3drec_torch, chip_smoke; "
+            "import tpu3drec_torch.ops.stereo, tpu3drec_torch.ops.pallas_sgm, "
+            "tpu3drec_torch.ops.pointcloud, tpu3drec_torch.ops.tsdf, "
+            "tpu3drec_torch.ops.mesh, tpu3drec_torch.pipelines.dense; "
             "bad = [m for m in ('jax', 'flax', 'tpu3drec', 'bench', "
             "'__graft_entry__') if m in sys.modules]; "
             "assert not bad, bad")

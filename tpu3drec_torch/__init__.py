@@ -1,10 +1,11 @@
 """tpu3drec_torch — the PyTorch/CUDA port of tpu3drec for NVIDIA Hopper.
 
 A second package beside the JAX reference `tpu3drec`: the same
-mask-padded data model and the same SIFT pair step (detect -> int8 2-NN
-ratio match -> homography RANSAC), with the reference's Pallas TPU
-kernels rewritten as hand-written CUDA C++ kernels for sm_90a
-(`csrc/`). Every kernel has a plain PyTorch version of the same function
+mask-padded data model, the SIFT pair step (detect -> int8 2-NN ratio
+match -> homography RANSAC) and the dense stage (rectify -> SGM stereo ->
+depth fusion -> point cloud -> TSDF mesh, `run_dense_reconstruction`),
+with the reference's Pallas TPU kernels rewritten as hand-written CUDA
+C++ kernels for sm_90a (`csrc/`). Every kernel has a plain PyTorch version of the same function
 beside it; a wrapper runs the plain version only for CPU tensors and
 launches the kernel (or raises) for CUDA tensors.
 
@@ -43,8 +44,13 @@ from tpu3drec_torch.api import (  # noqa: E402
     quick_match,
 )
 from tpu3drec_torch.pair_step import make_pair_fn  # noqa: E402
+from tpu3drec_torch.pipelines.dense import (  # noqa: E402
+    DenseReconstructionPipeline,
+    run_dense_reconstruction,
+)
 
 __all__ = [
+    "DenseReconstructionPipeline",
     "DescriptorKind",
     "Features",
     "Matches",
@@ -56,4 +62,5 @@ __all__ = [
     "prepare_image",
     "quick_match",
     "resolve_device",
+    "run_dense_reconstruction",
 ]

@@ -1,2 +1,3 @@
 """Ported operators: image primitives, SIFT, matching, RANSAC, geometry,
-and the kernel wrappers (`pallas_sample`, `pallas_match`)."""
+stereo, point clouds, TSDF and mesh utilities, and the kernel wrappers
+(`pallas_sample`, `pallas_match`, `pallas_sgm`)."""

@@ -1,11 +1,14 @@
-"""Image primitives on the SIFT path: grayscale, normalisation, the banded
-Gaussian blur and octave decimation.
+"""Image primitives of the SIFT and dense paths: grayscale, normalisation,
+the banded Gaussian blur, octave decimation, gradients, the box filter and
+the bilinear homography warp.
 
 Port of the main-path subset of `tpu3drec/ops/image.py`. Images are
 float32 `(..., H, W)` tensors in [0, 1]; every function works on any
 number of leading batch dimensions. The blur is two dense matrix products
 with a banded reflect-101 Toeplitz matrix, as in the reference; with TF32
-off (package import) they run at full float32 on the card.
+off (package import) they run at full float32 on the card. Warps are the
+reference's plain four-tap gather (`sample_grid`); its TPU band warp
+(`sample_grid_band`) has no counterpart here.
 """
 
 from __future__ import annotations
@@ -75,3 +78,109 @@ def gaussian_blur_matmul(img: torch.Tensor, sigma: float) -> torch.Tensor:
 def downsample2(img: torch.Tensor) -> torch.Tensor:
     """2x nearest-neighbour decimation (SIFT octave downsampling)."""
     return img[..., ::2, ::2]
+
+
+def central_gradients(img: torch.Tensor):
+    """Central-difference dx, dy of `(..., H, W)`, wrapping at the
+    borders (`jnp.roll`), as the reference computes them."""
+    dx = 0.5 * (torch.roll(img, -1, dims=-1) - torch.roll(img, 1, dims=-1))
+    dy = 0.5 * (torch.roll(img, -1, dims=-2) - torch.roll(img, 1, dims=-2))
+    return dx, dy
+
+
+def _conv1d(img: torch.Tensor, taps: torch.Tensor, axis: int) -> torch.Tensor:
+    """Reflect-padded 1-D convolution of `(..., H, W)` along axis 0 (rows)
+    or 1 (columns) of the image, as a correlation with `taps`."""
+    r = taps.shape[0] // 2
+    lead = img.shape[:-2]
+    x = img.reshape(-1, 1, *img.shape[-2:])
+    pad = (0, 0, r, r) if axis == 0 else (r, r, 0, 0)
+    x = torch.nn.functional.pad(x, pad, mode="reflect")
+    w = taps.to(x).reshape((1, 1, -1, 1) if axis == 0 else (1, 1, 1, -1))
+    y = torch.nn.functional.conv2d(x, w)
+    return y.reshape(*lead, *y.shape[-2:])
+
+
+def box_filter(img: torch.Tensor, size: int) -> torch.Tensor:
+    """Mean filter of `(..., H, W)` by a separable ones kernel."""
+    taps = torch.ones(size, dtype=torch.float32) / size
+    return _conv1d(_conv1d(img, taps, 0), taps, 1)
+
+
+def bilinear_sample(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Sample `(..., H, W)` at `(..., N, 2)` float (x, y) coordinates,
+    bilinear, clamped to the image (cv2.remap BORDER_REPLICATE)."""
+    h, w = img.shape[-2:]
+    x = torch.clamp(xy[..., 0], 0.0, w - 1.0)
+    y = torch.clamp(xy[..., 1], 0.0, h - 1.0)
+    x0 = torch.floor(x).to(torch.int64)
+    y0 = torch.floor(y).to(torch.int64)
+    x1 = torch.clamp(x0 + 1, max=w - 1)
+    y1 = torch.clamp(y0 + 1, max=h - 1)
+    fx = x - x0
+    fy = y - y0
+    # one flat gather for all four taps
+    idx = torch.cat([y0 * w + x0, y0 * w + x1, y1 * w + x0, y1 * w + x1], -1)
+    taps = torch.gather(img.reshape(*img.shape[:-2], h * w), -1, idx)
+    v00, v01, v10, v11 = taps.chunk(4, -1)
+    return ((1 - fy) * ((1 - fx) * v00 + fx * v01)
+            + fy * ((1 - fx) * v10 + fx * v11))
+
+
+def to_device(x: torch.Tensor, device) -> torch.Tensor:
+    """Copy a small host tensor to `device` without waiting for the card:
+    a copy from pageable memory would first drain the stream, so a CUDA
+    copy goes through pinned memory, asynchronously."""
+    device = torch.device(device)
+    if device.type == "cuda" and x.device.type == "cpu":
+        return x.pin_memory().to(device, non_blocking=True)
+    return x.to(device)
+
+
+def homography_grid(H: torch.Tensor, out_shape, device=None):
+    """Per-output-pixel source coordinates of the FORWARD map H.
+
+    H is (..., 3, 3); returns (sx, sy), each (..., h, w) float32 on
+    `device` (default: H's), with [sx, sy, 1] ~ H @ [x, y, 1] for every
+    output pixel (x, y). Sampling an image at this grid computes
+    out(p) = img(H p); pass H^-1 for the usual inverse warp. H may be
+    made on the host: it is copied to `device` (values unchanged)."""
+    h, w = out_shape
+    dev = H.device if device is None else torch.device(device)
+    H = to_device(H.to(torch.float32), dev)[..., None, None]
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                            torch.arange(w, dtype=torch.float32, device=dev),
+                            indexing="ij")
+    # projective division with a sign-preserving |w| guard
+    den = H[..., 2, 0, :, :] * xs + H[..., 2, 1, :, :] * ys + H[..., 2, 2, :, :]
+    den = torch.sign(den) * torch.clamp(torch.abs(den), min=1e-12)
+    sx = (H[..., 0, 0, :, :] * xs + H[..., 0, 1, :, :] * ys
+          + H[..., 0, 2, :, :]) / den
+    sy = (H[..., 1, 0, :, :] * xs + H[..., 1, 1, :, :] * ys
+          + H[..., 1, 2, :, :]) / den
+    return sx, sy
+
+
+def sample_grid(img: torch.Tensor, sx: torch.Tensor,
+                sy: torch.Tensor) -> torch.Tensor:
+    """Bilinear-sample `(..., H, W)` at `(..., h, w)` coordinate grids,
+    clamped (the 2-D form of `bilinear_sample`)."""
+    xy = torch.stack([sx.reshape(*sx.shape[:-2], -1),
+                      sy.reshape(*sy.shape[:-2], -1)], -1)
+    return bilinear_sample(img, xy).reshape(sx.shape)
+
+
+def grid_in_bounds(shape, sx: torch.Tensor, sy: torch.Tensor) -> torch.Tensor:
+    """Mask of grid positions whose bilinear footprint lies inside an
+    (H, W) source image (no border replication involved)."""
+    h, w = shape
+    return (sx >= 0.0) & (sx <= w - 1.0) & (sy >= 0.0) & (sy <= h - 1.0)
+
+
+def warp_perspective(img: torch.Tensor, H: torch.Tensor,
+                     out_shape) -> torch.Tensor:
+    """Inverse-warp an image by homography H (src -> dst), as
+    cv2.warpPerspective: samples src at H^-1 @ dst."""
+    sx, sy = homography_grid(torch.linalg.inv(H), out_shape,
+                             device=img.device)
+    return sample_grid(img, sx, sy)
