@@ -8,7 +8,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
      tpu3drec_torch/csrc with nvcc (one process per source, in parallel);
   2. each kernel against its plain PyTorch version on the card, on the
      inputs the main path gives it: `ori_desc` on all five octaves of the
-     full batch, `knn2` int8 on the full batch of pairs and float32 on two;
+     full batch (its support boxes equal `support_boxes`, its device
+     slot list holds the valid slots, two launches give the same bits,
+     every slot outside the bars listed with its histogram's peaks) and
+     on an all-valid stress meta at the octave-0 and octave-4 shapes
+     (borders, the detector's scale range, slots beyond it on the
+     uncached path, which may not miss), `knn2` int8 on the full batch
+     of pairs and float32 on two;
   3. the main path: `make_pair_fn(max_features=2048, num_hypotheses=256)`
      on 96 pairs of 480x640 images, each a synthetic photo and a known
      similarity warp of it. Launch counts are read around one call, then
@@ -18,8 +24,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
   4. the dense stage at `bench.py:bench_dense`'s configuration: 3 views
      of 480x640 (a synthetic photo rolled by -12, 0 and 12 px, f = 600,
      so a fronto-parallel plane at depth 6), 64 disparities, weighted
-     fusion, TSDF at 64. The `sgm` kernel is held against its plain
-     version on the 4 cost volumes this run hands it; launch counts are
+     fusion, TSDF at 64. The `sgm` kernel is held bit for bit against
+     its plain version on the 4 cost volumes this run hands it and at
+     `SGM_SHAPES` (D 16..128, one and three volumes, odd H and W), each
+     twice; launch counts are
      read around one `run_complete_pipeline` call, then three timed calls
      give MP-depth/s of the stereo stage and each stage's seconds; the
      result must pass a quality bar and the stereo stage must agree with
@@ -190,39 +198,211 @@ def ori_desc_work(torch, oc, angle, chunk=4096):
     return n_band, n_core, n_cell, int(needed.sum())
 
 
+def ori_desc_bars(torch, ps, a_k, r_k, a_p, r_p, meta):
+    """Invalid slots all zero, everything finite; returns, over the valid
+    slots in slot order, their indices, the angle difference (rad), the
+    descriptor cosine, the mask of those inside angle < 1e-3 rad &
+    cos > 0.9999, and the max |desc err| on those."""
+    valid = meta[:, 3] >= 0
+    inv = ~valid
+    if not (torch.all(a_k[inv] == 0) and torch.all(r_k[inv] == 0)):
+        fail("ori_desc: invalid slots are not zero")
+    if not (torch.isfinite(a_k).all() and torch.isfinite(r_k).all()):
+        fail("ori_desc: non-finite output")
+    d_k = ps.normalize_descriptors(r_k)[valid]
+    d_p = ps.normalize_descriptors(r_p)[valid]
+    da = (a_k[valid] - a_p[valid]).abs()
+    da = torch.minimum(da, 2 * math.pi - da)
+    cos = (d_k * d_p).sum(1) / torch.clamp(
+        d_k.norm(dim=1) * d_p.norm(dim=1), min=1e-9)
+    # a support with no gradient (a blank corner of a warped photo) gives
+    # the zero descriptor on both sides: equal, so a cosine of 1
+    both_zero = (d_k.abs().amax(1) == 0) & (d_p.abs().amax(1) == 0)
+    cos = torch.where(both_zero, torch.ones_like(cos), cos)
+    good = (da < 1e-3) & (cos > 0.9999)
+    err = float((d_k[good] - d_p[good]).abs().max()) if good.any() else 0.0
+    return dict(slots=torch.nonzero(valid)[:, 0], da=da, cos=cos, good=good,
+                err=err, n_zero=int(both_zero.sum()))
+
+
+def ori_desc_misses(torch, ps, dxs, dys, meta, hp, fb, a_k, bars, uncached,
+                    show=12):
+    """Prints every valid slot outside the bars with what explains it: the
+    plain version's smoothed histogram's two highest peaks, their relative
+    gap, and whether the kernel's angle sits at the second peak (an
+    argmax near-tie that the two summation orders break differently)."""
+    bad = torch.nonzero(~bars["good"])[:, 0]
+    if bad.numel() == 0:
+        return
+    slots = bars["slots"][bad]
+    _, h, w = dxs.shape
+    hist = ps._band_histogram(dxs.reshape(-1), dys.reshape(-1), meta[slots],
+                              hp, fb, h, w)
+    peak = (hist >= hist.roll(1, 1)) & (hist >= hist.roll(-1, 1))
+    top = torch.where(peak, hist, torch.full_like(hist, -1.0)).topk(2, dim=1)
+    gap = (top.values[:, 0] - top.values[:, 1]) / top.values[:, 0].clamp(
+        min=1e-30)
+    bins = (a_k[slots] / (2 * math.pi) + 0.5) * ps.ORI_BINS
+    off = (bins - top.indices[:, 1]).remainder(ps.ORI_BINS)
+    second = torch.minimum(off, ps.ORI_BINS - off) <= 1.0
+    scl = meta[slots, 2].float() / 1024
+    ns = int(second.sum())
+    print(f"  {bad.numel()} slots outside the bars: {ns} with the kernel's "
+          f"angle at the plain histogram's second peak (peaks within "
+          f"{float(gap[second].max()) if ns else 0.0:.2e} relative), "
+          f"{int(uncached[bad].sum())} on the uncached path")
+    for i in range(min(show, bad.numel())):
+        print(f"    slot {int(slots[i])}: scl {float(scl[i]):.3f}, "
+              f"{'uncached' if bool(uncached[bad[i]]) else 'cached'}, angle "
+              f"diff {float(bars['da'][bad[i]]):.3e} rad, cos "
+              f"{float(bars['cos'][bad[i]]):.6f}, peaks within "
+              f"{float(gap[i]):.2e}, at the second peak {bool(second[i])}")
+
+
+def kernel_boxes_and_list(torch, ps, dxs, dys, meta, hp, fb):
+    """One launch into outputs filled with NaN and a marked work buffer:
+    every slot must be written, the device's valid-slot list must hold
+    exactly `nonzero(meta[:, 3] >= 0)`, and the kernel's support boxes
+    must equal `support_boxes` (the crop the CPU tests check). Returns
+    the valid slots' boxes."""
+    K = meta.shape[0]
+    _, h, w = dxs.shape
+    dev = dxs.device
+    valid = meta[:, 3] >= 0
+    boxes = torch.zeros(K, 4, dtype=torch.int32, device=dev)
+    work = torch.full((K + 2,), -7, dtype=torch.int32, device=dev)
+    a = torch.full((K,), float("nan"), device=dev)
+    r = torch.full((K, 16, 8), float("nan"), device=dev)
+    ps.launch_kernel(dxs, dys, meta, hp, fb, a, r, work, boxes)
+    ref = torch.nonzero(valid)[:, 0].to(torch.int32)
+    n = int(work[0])
+    if n != ref.numel() or not torch.equal(
+            torch.sort(work[2:2 + n]).values, ref):
+        fail(f"ori_desc: the device's slot list ({n} entries) is not the "
+             f"{ref.numel()} valid slots")
+    if not (torch.isfinite(a).all() and torch.isfinite(r).all()):
+        fail("ori_desc: the kernel left a slot's output unwritten")
+    if not (torch.all(a[~valid] == 0) and torch.all(r[~valid] == 0)):
+        fail("ori_desc: an invalid slot's output is not zero")
+    if not torch.equal(boxes[valid], ps.support_boxes(meta, hp, fb, h, w)[valid]):
+        fail("ori_desc: the kernel's support boxes differ from support_boxes")
+    return boxes[valid]
+
+
+def stress_meta(torch, ps, dxs, n, seed):
+    """n all-valid slots on the (L, h, w) stack `dxs`: keypoints anywhere
+    in the image, the four corners and the edge midpoints among them,
+    scales across the detector's range (1.6 * 2**(ls/3), ls in
+    [0.5, 3.5]) and 16 at 5 px, beyond it (their support boxes exceed the
+    kernel's cache on large octaves), layers 1..3 of random images."""
+    from tpu3drec_torch.ops.sift import N_LAYERS
+    L, h, w = dxs.shape
+    rng = np.random.default_rng(seed)
+    xs = rng.uniform(0, w - 1, n)
+    ys = rng.uniform(0, h - 1, n)
+    edge_x = [0, w - 1, 0, w - 1, (w - 1) / 2, (w - 1) / 2, 0, w - 1]
+    edge_y = [0, 0, h - 1, h - 1, 0, h - 1, (h - 1) / 2, (h - 1) / 2]
+    xs[:8], ys[:8] = edge_x, edge_y
+    scl = 1.6 * 2 ** (rng.uniform(0.5, 3.5, n) / 3)
+    scl[:8] = 1.6 * 2 ** (3.5 / 3)
+    scl[8:24] = 5.0
+    S = N_LAYERS + 3                        # stack layers per image
+    layer = rng.integers(0, L // S, n) * S + rng.integers(1, 4, n)
+    dev = dxs.device
+    t = lambda a, dt: torch.tensor(a, dtype=dt, device=dev)
+    return ps.prep_meta(t(xs, torch.float32), t(ys, torch.float32),
+                        t(layer, torch.int32), t(scl, torch.float32),
+                        torch.ones(n, dtype=torch.bool, device=dev),
+                        *ps.pad_dims(h, w))
+
+
+def empty_slot_ms(torch, n_images=2 * BATCH, caps=(640, 320, 160, 80, 64)):
+    """ms of one `ori_desc` call at each of the main path's octave shapes
+    (n_images images of 6 stack layers, the detector's slot caps) when no
+    slot holds a keypoint: what the route costs before any keypoint.
+    It calls only `ori_desc`'s public signature, so it also times another
+    tree's kernel when that tree's package is the one imported."""
+    from tpu3drec_torch.ops import pallas_sample as ps
+    out = []
+    for o, cap in enumerate(caps):
+        h, w = H >> o, W >> o
+        dxs = torch.zeros(n_images * 6, h, w, dtype=torch.bfloat16,
+                          device="cuda")
+        meta = torch.zeros(n_images * cap, 4, dtype=torch.int32,
+                           device="cuda")
+        meta[:, 3] = -1
+        hp, wp = ps.pad_dims(h, w)
+        out.append(cuda_ms(torch, lambda: ps.ori_desc(
+            dxs, dxs, meta, hp, ps.frac_bits(hp, wp)), reps=10))
+        del dxs, meta
+    return out
+
+
+def device_ms_by_kernel(torch, fn):
+    """Device ms of each kernel and memset, by name, in one profiled call
+    of `fn` after a warm-up call. The profiler lists the kernels that the
+    ctypes libraries launch (no host op owns them)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            out[ev.key] = out.get(ev.key, 0.0) + _device_us(ev, True) / 1e3
+    return out
+
+
+def ms_of(by_kernel, part):
+    """Summed ms of the entries of `device_ms_by_kernel` whose name holds
+    `part`, or None when the profiler recorded none."""
+    ms = [v for k, v in by_kernel.items() if part in k]
+    return sum(ms) if ms else None
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.3f} ms"
+
+
 def check_ori_desc(torch, samples):
-    """ori_desc kernel vs plain on every octave; returns the kernel line
-    fields (time and bound summed over the octaves of one call)."""
+    """ori_desc kernel vs plain on every octave, and on an all-valid
+    stress meta at the octave-0 and octave-4 shapes; every launch twice,
+    bit-identical; the device's slot list checked on the path's (mixed),
+    the stress (all valid) and an all-invalid meta. Returns the kernel
+    line fields (time and bound summed over the octaves of one call)."""
     from tpu3drec_torch.ops import pallas_sample as ps
     n_valid = n_bad = 0
     max_err = 0.0
     ms = plain_ms = 0.0
+    parts = {"ori_desc_kernel": 0.0, "list_slots_kernel": 0.0, "Memset": 0.0}
     bytes_ = ops = 0.0
     work = [0, 0, 0, 0]
+    box_px = []
     for oc in samples:
         args = (oc.dxs, oc.dys, oc.meta, oc.hp, oc.fb)
         a_k, r_k = ps.ori_desc(*args)
+        a_k2, r_k2 = ps.ori_desc(*args)
         a_p, r_p = ps.ori_desc_plain(*args)
         torch.cuda.synchronize()
-        valid = oc.meta[:, 3] >= 0
-        inv = ~valid
-        if not (torch.all(a_k[inv] == 0) and torch.all(r_k[inv] == 0)):
-            fail("ori_desc: invalid slots are not zero")
-        d_k = ps.normalize_descriptors(r_k)[valid]
-        d_p = ps.normalize_descriptors(r_p)[valid]
-        da = (a_k[valid] - a_p[valid]).abs()
-        da = torch.minimum(da, 2 * math.pi - da)
-        cos = (d_k * d_p).sum(1) / torch.clamp(
-            d_k.norm(dim=1) * d_p.norm(dim=1), min=1e-9)
-        good = (da < 1e-3) & (cos > 0.9999)
-        if not (torch.isfinite(a_k).all() and torch.isfinite(r_k).all()):
-            fail("ori_desc: non-finite output")
-        nv = int(valid.sum())
+        if not (torch.equal(a_k, a_k2) and torch.equal(r_k, r_k2)):
+            fail(f"ori_desc: two launches differ on octave {oc.octave}")
+        bars = ori_desc_bars(torch, ps, a_k, r_k, a_p, r_p, oc.meta)
+        nv = bars["slots"].numel()
         n_valid += nv
-        n_bad += nv - int(good.sum())
-        if good.any():
-            max_err = max(max_err, float((d_k[good] - d_p[good]).abs().max()))
+        n_bad += nv - int(bars["good"].sum())
+        max_err = max(max_err, bars["err"])
+        box = kernel_boxes_and_list(torch, ps, *args)
+        area = (box[:, 1] - box[:, 0]) * (box[:, 3] - box[:, 2])
+        box_px.append(int(area.max()) if nv else 0)
+        ori_desc_misses(torch, ps, *args, a_k, bars, area > ps.CACHE_PX)
         ms += cuda_ms(torch, lambda: ps.ori_desc(*args))
+        by_kernel = device_ms_by_kernel(torch, lambda: ps.ori_desc(*args))
+        for name in parts:
+            if parts[name] is not None:
+                got = ms_of(by_kernel, name)
+                parts[name] = None if got is None else parts[name] + got
         plain_ms += cuda_ms(torch, lambda: ps.ori_desc_plain(*args), reps=1)
         n_band, n_core, n_cell, n_px = ori_desc_work(torch, oc, a_p)
         work = [a + b for a, b in zip(work, (n_band, n_core, n_cell, n_px))]
@@ -240,12 +420,66 @@ def check_ori_desc(torch, samples):
     print(f"ori_desc vs plain: {n_valid} valid slots over {len(samples)} "
           f"octaves; {n_bad} outside angle<1e-3 rad & cos>0.9999 "
           f"({100 * frac_bad:.3f}%, bar <= 0.5%); max |desc err| on the rest "
-          f"{max_err:.3e}")
+          f"{max_err:.3e}; two launches bit-identical; every slot written; "
+          f"the device's slot list is the valid slots; the kernel's support "
+          f"boxes equal support_boxes; largest {max(box_px)} px (cache "
+          f"{ps.CACHE_PX})")
+    print(f"ori_desc: {ms:.3f} ms per pair-step call (5 octaves, CUDA "
+          f"events); device time in one profiled call per octave: main "
+          f"kernel {fmt_ms(parts['ori_desc_kernel'])}, slot listing "
+          f"{fmt_ms(parts['list_slots_kernel'])}, counter memset "
+          f"{fmt_ms(parts['Memset'])}; plain {plain_ms:.3f} ms")
     print(f"ori_desc work this run needs: {work[0]} band px in the mask, "
           f"{work[1]} core px in the support, {work[2]} cells, {work[3]} "
           f"distinct stack px; {bytes_ / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP")
     if n_valid == 0 or frac_bad > 0.005:
         fail("ori_desc disagrees with its plain version")
+
+    # the compaction and the crop at full occupancy, borders included; the
+    # last case crops the smallest octave to an odd width (scalar loads).
+    # Slots whose box exceeds the cache take the uncached path: none of
+    # them may miss the bars.
+    first, last = samples[0], samples[-1]
+    for dxs, dys in ((first.dxs, first.dys), (last.dxs, last.dys),
+                     (last.dxs[..., :-1].contiguous(),
+                      last.dys[..., :-1].contiguous())):
+        _, h, w = dxs.shape
+        hp, wp = ps.pad_dims(h, w)
+        meta = stress_meta(torch, ps, dxs, 16384, SEED + w)
+        args = (dxs, dys, meta, hp, ps.frac_bits(hp, wp))
+        a_k, r_k = ps.ori_desc(*args)
+        a_k2, r_k2 = ps.ori_desc(*args)
+        a_p, r_p = ps.ori_desc_plain(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(a_k, a_k2) and torch.equal(r_k, r_k2)):
+            fail("ori_desc: two launches differ on the stress meta")
+        bars = ori_desc_bars(torch, ps, a_k, r_k, a_p, r_p, meta)
+        box = kernel_boxes_and_list(torch, ps, *args)
+        uncached = (box[:, 1] - box[:, 0]) * (box[:, 3] - box[:, 2]) > ps.CACHE_PX
+        nv = bars["slots"].numel()
+        nb = nv - int(bars["good"].sum())
+        nu = int(uncached.sum())
+        nbu = int((uncached & ~bars["good"]).sum())
+        print(f"ori_desc stress, all {nv} slots valid on stacks "
+              f"{tuple(dxs.shape)}: {nb} outside the bars "
+              f"({100 * nb / nv:.3f}%, bar <= 0.5%), of them {nbu} of the "
+              f"{nu} slots on the uncached path (bar 0); {bars['n_zero']} "
+              f"slots with no gradient in their support, zero on both "
+              f"sides; max |desc err| {bars['err']:.3e}; two launches "
+              f"bit-identical")
+        ori_desc_misses(torch, ps, *args, a_k, bars, uncached)
+        if nb > 0.005 * nv or nbu > 0:
+            fail("ori_desc disagrees with its plain version on the stress meta")
+    meta[:, 3] = -1
+    kernel_boxes_and_list(torch, ps, *args)
+    print("ori_desc, all 16384 slots invalid: every slot written with "
+          "zeros, the device's slot list empty")
+
+    empty = empty_slot_ms(torch)
+    print(f"ori_desc with every slot empty, at the 5 octave shapes: "
+          f"{sum(empty):.4f} ms per pair-step call ("
+          + " + ".join(f"{t:.4f}" for t in empty) + ")")
+
     t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_OPS * 1e3
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
@@ -368,28 +602,48 @@ def profile_call(torch, fn, prefix, top=12):
         print(f"  {ms:9.3f} ms  x{n:<5d} {name[:100]}")
 
 
-def check_sgm(torch, vols):
-    """sgm kernel vs plain on the main path's own volumes (B, D, H, W);
-    returns the kernel line fields. `ms` is the whole CUDA route (layouts,
-    the one launch, the add back); the parts are printed beside it."""
-    from tpu3drec_torch.ops import pallas_sgm as psg
+# (B, D, H, W) beyond the main path's: D across the kernel's register
+# tiers, one and three volumes, odd and ragged H and W
+SGM_SHAPES = [(1, 16, 97, 131), (3, 48, 61, 203), (1, 100, 45, 77),
+              (3, 128, 33, 67), (2, 64, 17, 5), (3, 64, 481, 641)]
+
+
+def sgm_equal(torch, psg, vols, label):
+    """Kernel route vs plain: bit-equal, and bit-identical on a second
+    launch; returns the max |difference| (0.0)."""
     got = psg.sgm_aggregate_batch(vols)
+    again = psg.sgm_aggregate_batch(vols)
     ref = psg.sgm_aggregate_batch_plain(vols)
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
-        fail("sgm: non-finite output")
-    max_err = float((got - ref).abs().max())
-    equal = bool(torch.equal(got, ref))
-    print(f"sgm vs plain at {tuple(vols.shape)}: max |err| {max_err} "
-          f"(bit-equal: {equal}; bar rtol 1e-6 / atol 1e-5)")
-    if not torch.allclose(got, ref, rtol=1e-6, atol=1e-5):
-        fail("sgm disagrees with its plain version")
-    del got, ref
-    v_h, v_v = psg.sgm_layouts(vols)
+        fail(f"sgm: non-finite output at {label}")
+    if not torch.equal(got, again):
+        fail(f"sgm: two launches differ at {label}")
+    if not torch.equal(got, ref):
+        fail(f"sgm: not bit-equal to its plain version at {label} (max "
+             f"|err| {float((got - ref).abs().max())})")
+    return float((got - ref).abs().max())
+
+
+def check_sgm(torch, vols):
+    """sgm kernel vs plain (torch.equal) on the main path's own volumes
+    (B, D, H, W) and at SGM_SHAPES; returns the kernel line fields. `ms`
+    is the whole CUDA route (output allocation and the one call, which
+    enqueues the vertical and the horizontal kernel); each kernel's device
+    time comes from one profiled call."""
+    from tpu3drec_torch.ops import pallas_sgm as psg
+    max_err = sgm_equal(torch, psg, vols, tuple(vols.shape))
+    gen = torch.Generator(device=vols.device).manual_seed(SEED)
+    for shape in SGM_SHAPES:
+        v = torch.rand(shape, generator=gen, device=vols.device) * 2
+        sgm_equal(torch, psg, v, shape)
+    print(f"sgm vs plain: bit-equal (torch.equal) at {tuple(vols.shape)} and "
+          f"at {SGM_SHAPES}; two launches bit-identical at each")
     ms = cuda_ms(torch, lambda: psg.sgm_aggregate_batch(vols))
-    kernel_ms = cuda_ms(torch, lambda: psg.sgm_axes(v_h, v_v))
-    layout_ms = cuda_ms(torch, lambda: psg.sgm_layouts(vols))
-    del v_h, v_v
+    by_kernel = device_ms_by_kernel(
+        torch, lambda: psg.sgm_aggregate_batch(vols))
+    v_ms = ms_of(by_kernel, "sgm_v_kernel")
+    h_ms = ms_of(by_kernel, "sgm_h_kernel")
     plain_ms = cuda_ms(torch, lambda: psg.sgm_aggregate_batch_plain(vols),
                        reps=1)
     n = vols.numel()
@@ -398,11 +652,14 @@ def check_sgm(torch, vols):
     ops = SGM_FLOPS_PER_ELEMENT * n
     t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_OPS * 1e3
-    print(f"sgm: {ms:.3f} ms per call = layouts {layout_ms:.3f} + kernel "
-          f"{kernel_ms:.3f} (one launch, both axes) + add back "
-          f"{ms - layout_ms - kernel_ms:.3f}; plain {plain_ms:.3f} ms; "
-          f"bound {bytes_ / 1e6:.1f} MB -> {t_bytes:.4f} ms, "
-          f"{ops / 1e9:.2f} GFLOP -> {t_ops:.4f} ms")
+    print(f"sgm: {ms:.3f} ms per call on the native layout, no layout copy "
+          f"(CUDA events); device time in one profiled call: vertical "
+          f"kernel {fmt_ms(v_ms)}, 5 volume passes, horizontal kernel "
+          f"{fmt_ms(h_ms)}, 6 passes; "
+          f"plain {plain_ms:.3f} ms; bound {bytes_ / 1e6:.1f} MB -> "
+          f"{t_bytes:.4f} ms, {ops / 1e9:.2f} GFLOP -> {t_ops:.4f} ms; 11 "
+          f"passes at {PEAK_BYTES_PER_S / 1e12} TB/s -> "
+          f"{11 * n * 4 / PEAK_BYTES_PER_S * 1e3:.4f} ms")
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",

@@ -224,7 +224,7 @@ def test_tsdf_fuse_matches_jax():
 def test_tsdf_mesh_matches_jax():
     depths, valids, Ks, Rs, ts = _tsdf_views()
     got = ttsdf.tsdf_mesh(depths[0], valids[0], Ks[0], Rs[0], ts[0],
-                          resolution=32)
+                          resolution=32, device="cpu")
     ref = jtsdf.tsdf_mesh(depths[0], valids[0], Ks[0], Rs[0], ts[0],
                           resolution=32)
     np.testing.assert_array_equal(got["origin"], ref["origin"])
@@ -241,7 +241,17 @@ def test_tsdf_mesh_matches_jax():
     np.testing.assert_array_equal(f, ref["faces"])
     with pytest.raises(ValueError):
         ttsdf.tsdf_mesh(depths[0], np.zeros_like(valids[0]), Ks[0], Rs[0],
-                        ts[0])
+                        ts[0], device="cpu")
+
+
+def test_tsdf_mesh_device_none_means_cuda(monkeypatch):
+    """`device=None` is CUDA, as for every entry point that takes host
+    arrays: without a card it raises rather than running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    depths, valids, Ks, Rs, ts = _tsdf_views()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ttsdf.tsdf_mesh(depths[0], valids[0], Ks[0], Rs[0], ts[0],
+                        resolution=16)
 
 
 def test_mesh_functions_match_jax(tmp_path):

@@ -9,6 +9,7 @@ reference's polynomial atan2 (1.4e-5 rad)."""
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 import torch
 
 from tpu3drec.ops import pallas_sample as jps
@@ -143,3 +144,122 @@ def test_prep_meta_quantises_like_the_reference():
         np.testing.assert_array_equal(m[:, 3], (im[:, 0] & 0xFFFF) - 1)
         assert tps.frac_bits(hp, wp) == jps.frac_bits(hp, wp)
         assert tps.pad_dims(h, w) == jps.pad_dims(h, w)
+
+
+@pytest.mark.parametrize("kind", ["mixed", "all_invalid", "all_valid"])
+def test_ori_desc_wrapper_on_cpu_zeroes_exactly_the_invalid_slots(kind):
+    """The wrapper's CPU route on the slot mixes the kernel lists on the
+    card: invalid slots all zero, valid slots within the oracle's bars."""
+    S, H, W = 4, 96, 128
+    rng = np.random.default_rng(9)
+    K = 7
+    xs = rng.uniform(10, W - 10, K).astype(np.float32)
+    ys = rng.uniform(10, H - 10, K).astype(np.float32)
+    layer = rng.integers(1, 4, K).astype(np.int32)
+    scl = rng.uniform(1.6, 3.5, K).astype(np.float32)
+    keep = {"mixed": rng.random(K) < 0.5, "all_invalid": np.zeros(K, bool),
+            "all_valid": np.ones(K, bool)}[kind]
+    _check_against_oracle(S, H, W, xs, ys, layer, scl, keep, seed=11)
+
+
+# ---------------------------------------------------------------------
+# the kernel's crop (support_boxes)
+# ---------------------------------------------------------------------
+
+def _weighted_pixels(dxs, dys, meta, hp, fb):
+    """For each valid slot, the in-image window pixels to which the
+    reference gives a non-zero band or descriptor weight, as a
+    (k, rows, 128) mask with their absolute rows and columns. Geometry and
+    angle are the JAX package's: its kernel's fixed-point rounding of the
+    meta, `_row_starts`, and `oracle_ori_desc`'s angle."""
+    _, h, w = dxs.shape
+    sel = torch.nonzero(meta[:, 3] >= 0)[:, 0]
+    m = meta[sel].numpy().astype(np.int64)
+    dxb, dyb = dxs.float().numpy(), dys.float().numpy()
+    q = np.float32(1.0 / (1 << fb))
+    half = 1 << (fb - 1)
+    geo = []
+    for xq, yq, sclq, lay in m:
+        x, y = np.float32(xq) * q, np.float32(yq) * q
+        scl = np.float32(sclq) * np.float32(1.0 / 1024.0)
+        rxi, ryi = (xq + half) >> fb, (yq + half) >> fb
+        ys0, ysb = jps._row_starts(int(ryi), hp)
+        a, _ = jps.oracle_ori_desc(dxb[lay], dyb[lay], float(x), float(y),
+                                   float(scl), hp=hp)
+        geo.append((x, y, scl, a, rxi - 64, ys0, ysb))
+    x, y, scl, angle = (torch.tensor(np.array([g[i] for g in geo]),
+                                     dtype=torch.float32) for i in range(4))
+    xs0, ys0, ysb = (torch.tensor([int(g[i]) for g in geo]) for i in (4, 5, 6))
+    y0 = torch.minimum(ys0, ysb)                     # the 96-row window
+    rows = y0[:, None] + torch.arange(tps.WIN_H)
+    cols = xs0[:, None] + torch.arange(tps.CORE_W)
+    rx = (cols.float() - x[:, None])[:, None, :]
+    ry = (rows.float() - y[:, None])[:, :, None]
+    in_band = ((rows >= ysb[:, None]) & (rows < ysb[:, None] + tps.ORI_H))
+    in_core = ((rows >= ys0[:, None]) & (rows < ys0[:, None] + tps.CORE_H))
+    s = scl[:, None, None]
+    band = (((rx / s).abs() <= tps.ORI_RADIUS_FCTR)
+            & ((ry / s).abs() <= tps.ORI_RADIUS_FCTR) & in_band[:, :, None])
+    a = angle[:, None, None]
+    ca, sa = torch.cos(a), torch.sin(a)
+    inv_hw = 1.0 / (tps.DESC_SCL_FCTR * s)
+    ud = (ca * rx + sa * ry) * inv_hw
+    vd = (-sa * rx + ca * ry) * inv_hw
+    desc = ((vd + 1.5 > -1) & (vd + 1.5 < tps.DESC_D) & (ud + 1.5 > -1)
+            & (ud + 1.5 < tps.DESC_D) & in_core[:, :, None])
+    inside = (((rows >= 0) & (rows < h))[:, :, None]
+              & ((cols >= 0) & (cols < w))[:, None, :])
+    return sel, (band | desc) & inside, rows, cols, x, y, scl
+
+
+def _assert_boxes_cover_support(dxs, dys, meta, hp, fb):
+    _, h, w = dxs.shape
+    sel, need, rows, cols, x, y, scl = _weighted_pixels(dxs, dys, meta, hp, fb)
+    assert need.any(1).any(1).all()
+    box = tps.support_boxes(meta, hp, fb, h, w)[sel].to(torch.int64)
+    r, c = rows[:, :, None], cols[:, None, :]
+    in_box = ((r >= box[:, 0, None, None]) & (r < box[:, 1, None, None])
+              & (c >= box[:, 2, None, None]) & (c < box[:, 3, None, None]))
+    assert not (need & ~in_box).any()
+    # and inside the support disc, where the kernel loads gradients
+    d2 = ((c.float() - x[:, None, None]) ** 2
+          + (r.float() - y[:, None, None]) ** 2)
+    rd = tps.support_radius(scl)[:, None, None]
+    assert not (need & (d2 > rd * rd)).any()
+    # within the window columns and the image
+    assert (box[:, 0] >= 0).all() and (box[:, 1] <= h).all()
+    assert (box[:, 2] >= 0).all() and (box[:, 3] <= w).all()
+    assert ((box[:, 3] - box[:, 2]) <= tps.CORE_W).all()
+
+
+def test_support_boxes_cover_every_weighted_pixel(test_image):
+    from tpu3drec_torch.ops.sift import octave_samples
+    imgs = torch.from_numpy(np.asarray(test_image, np.float32))[None]
+    n = 0
+    for oc in octave_samples(imgs, 256):
+        if bool((oc.meta[:, 3] >= 0).any()):
+            _assert_boxes_cover_support(oc.dxs, oc.dys, oc.meta, oc.hp, oc.fb)
+            n += int((oc.meta[:, 3] >= 0).sum())
+    assert n > 50
+
+
+@pytest.mark.parametrize("H, W", [(120, 160), (30, 40), (30, 39)])
+def test_support_boxes_at_borders_and_largest_scale(H, W):
+    """Corners, edge midpoints and near-edge keypoints at the detector's
+    largest scale, two smaller ones and one at 5 px (beyond the
+    detector's range), at octave-0-like, octave-4-like and odd sizes."""
+    S = 6
+    dx, dy, _, _, Hp, Wp = _grad_stacks(S, H, W, seed=4)
+    big = 1.6 * 2 ** (3.5 / 3)                        # the detector's largest
+    xs = np.array([0, W - 1, 0, W - 1, (W - 1) / 2, (W - 1) / 2, 0, W - 1,
+                   0.3, 0.26 * W, 0.6 * W], np.float32)
+    ys = np.array([0, 0, H - 1, H - 1, 0, H - 1, (H - 1) / 2, (H - 1) / 2,
+                   H - 2.1, 2.2, 0.4 * H], np.float32)
+    scl = np.full(len(xs), big, np.float32)
+    scl[-3:] = [2.02, 3.1, 5.0]
+    layer = np.arange(len(xs), dtype=np.int32) % 3 + 1
+    meta = tps.prep_meta(torch.from_numpy(xs), torch.from_numpy(ys),
+                         torch.from_numpy(layer), torch.from_numpy(scl),
+                         torch.ones(len(xs), dtype=torch.bool), Hp, Wp)
+    _assert_boxes_cover_support(_bf16(dx), _bf16(dy), meta, Hp,
+                                tps.frac_bits(Hp, Wp))

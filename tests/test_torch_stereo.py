@@ -152,9 +152,12 @@ def _volumes(B, D, h, w, seed):
     return rng.uniform(0, 2, (B, D, h, w)).astype(np.float32)
 
 
-# the three shapes of tests/test_pallas_sgm.py, with its penalties
+# the three shapes of tests/test_pallas_sgm.py, with its penalties; then
+# D = 48 (the card's kernel splits D into register tiers) and odd H and W
+# (ragged column groups and row chunks on the card)
 SGM_CASES = [((2, 32, 24, 40), 0, 15, 90), ((1, 16, 16, 24), 3, 25, 150),
-             ((5, 16, 20, 28), 7, 15, 90)]
+             ((5, 16, 20, 28), 7, 15, 90), ((2, 48, 23, 37), 11, 15, 90),
+             ((3, 16, 19, 25), 13, 25, 150)]
 
 
 @pytest.mark.parametrize("shape,seed,p1,p2", SGM_CASES)

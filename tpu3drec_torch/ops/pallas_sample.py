@@ -17,6 +17,14 @@ Three forms of the one function live here:
     (cv2 bin order, unit norm, clip at 0.2, renorm to 512), which runs
     outside the kernel as in the reference.
 
+On the card the wrapper makes one call of the kernel library, which
+lists the valid slots on the device (no host sync), zeroes the invalid
+slots' outputs and visits the valid slots only. The kernel loads and
+scans only each slot's `support_boxes` box, the window pixels that can
+carry weight; it computes the box itself with the same float32
+operations (a launch can write the boxes out, and the card's smoke run
+holds them equal to this function). The CPU tests check the function.
+
 Semantics kept from the reference even though the port pads nothing:
 window rows start at the 8-quantised `_row_starts` of the padded stack
 height `hp = pad_dims(h, w)[0]`, columns at `rxi - 64`; `rxi`/`ryi` are
@@ -30,6 +38,7 @@ layers) stack.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -46,6 +55,15 @@ ORI_H = 56     # orientation band rows
 CELL = 4       # box-downsample factor for the descriptor grid
 CH, CW = CORE_H // CELL, CORE_W // CELL  # coarse grid (22, 32)
 _TWO_PI = 2 * math.pi
+# A descriptor pixel has |ud|, |vd| < DESC_D/2 + 0.5 in cells of
+# DESC_SCL_FCTR * scl px, so it lies within this many scl of the keypoint
+# whatever the angle; the orientation band (|u|, |v| <= ORI_RADIUS_FCTR)
+# lies inside the same disc. SUPPORT_SLACK px absorbs float rounding.
+SUPPORT_RADIUS_FCTR = DESC_SCL_FCTR * (DESC_D / 2 + 0.5) * math.sqrt(2.0)
+SUPPORT_SLACK = 0.5
+# csrc/ori_desc.cu caches a box of up to this many pixels in shared memory
+# and reads larger ones (scales beyond the detector's) from global memory
+CACHE_PX = 6400
 
 
 def frac_bits(hp: int, wp: int) -> int:
@@ -123,13 +141,12 @@ def _window(flat, lay, row_start, nrows: int, col_start, h: int, w: int):
     return torch.where(inside, vals, torch.zeros_like(vals)), rows, cols
 
 
-def _ori_desc_dense(dxf, dyf, meta, hp: int, fb: int, h: int, w: int):
-    """Dense form for a chunk of VALID keypoints: (angle (k,), raw (k,16,8))."""
-    x, y, scl, lay, xs0, ys0, ysb = _geometry(meta, hp, fb)
+def _band_histogram(dxf, dyf, meta, hp: int, fb: int, h: int, w: int):
+    """The twice-smoothed 36-bin orientation histogram (k, 36) over each
+    VALID keypoint's band."""
+    x, y, scl, lay, xs0, _, ysb = _geometry(meta, hp, fb)
     k = meta.shape[0]
     dev = dxf.device
-
-    # ---- orientation histogram over the keypoint-centred band
     bdx, brows, bcols = _window(dxf, lay, ysb, ORI_H, xs0, h, w)
     bdy, _, _ = _window(dyf, lay, ysb, ORI_H, xs0, h, w)
     magb = torch.sqrt(bdx * bdx + bdy * bdy)
@@ -153,7 +170,17 @@ def _ori_desc_dense(dxf, dyf, meta, hp: int, fb: int, h: int, w: int):
         return (6 * hh + 4 * (hh.roll(1, -1) + hh.roll(-1, -1))
                 + hh.roll(2, -1) + hh.roll(-2, -1)) / 16.0
 
-    hist = smooth(smooth(hist))
+    return smooth(smooth(hist))
+
+
+def _ori_desc_dense(dxf, dyf, meta, hp: int, fb: int, h: int, w: int):
+    """Dense form for a chunk of VALID keypoints: (angle (k,), raw (k,16,8))."""
+    x, y, scl, lay, xs0, ys0, _ = _geometry(meta, hp, fb)
+    k = meta.shape[0]
+    dev = dxf.device
+
+    # ---- orientation: the histogram's first argmax and a parabolic peak
+    hist = _band_histogram(dxf, dyf, meta, hp, fb, h, w)
     pk = torch.argmax(hist, dim=1)
     hl = hist.gather(1, ((pk - 1) % ORI_BINS)[:, None])[:, 0]
     hc = hist.gather(1, pk[:, None])[:, 0]
@@ -206,6 +233,46 @@ def _ori_desc_dense(dxf, dyf, meta, hp: int, fb: int, h: int, w: int):
     return angle, raw.reshape(k, DESC_D * DESC_D, DESC_B)
 
 
+def support_radius(scl: torch.Tensor) -> torch.Tensor:
+    """Radius (px) of the disc around a keypoint outside which no pixel
+    has a band or descriptor weight; the kernel computes and loads
+    gradients only inside it."""
+    return SUPPORT_RADIUS_FCTR * scl + SUPPORT_SLACK
+
+
+def support_boxes(meta: torch.Tensor, hp: int, fb: int, h: int,
+                  w: int) -> torch.Tensor:
+    """(K, 4) int32 `[r0, r1, c0, c1]`: the half-open box of octave-image
+    pixels that can carry weight for each slot. It is the bounding box of
+    the orientation band box (|u|, |v| <= ORI_RADIUS_FCTR, within the
+    56 band rows) and the rotation-invariant descriptor box
+    (`support_radius`, within the 88 core rows), clipped to the window
+    columns and the image. An empty box is all zeros; rows of invalid
+    slots are computed all the same and never read."""
+    x, y, scl, _, xs0, ys0, ysb = _geometry(meta, hp, fb)
+    rb = ORI_RADIUS_FCTR * scl + SUPPORT_SLACK
+    rd = support_radius(scl)
+    # spans, one column each: band rows, core rows, band cols, core cols
+    c = torch.stack([y, y, x, x], 1)
+    r = torch.stack([rb, rd, rb, rd], 1)
+    lo = torch.stack([ysb, ys0, xs0, xs0], 1)
+    col_hi = torch.clamp(xs0 + CORE_W, max=w)
+    hi = torch.stack([torch.clamp(ysb + ORI_H, max=h),
+                      torch.clamp(ys0 + CORE_H, max=h), col_hi, col_hi], 1)
+    a = torch.maximum(torch.ceil(c - r).to(torch.int64), lo).clamp(min=0)
+    b = torch.minimum(torch.floor(c + r).to(torch.int64) + 1, hi)
+    a_b, a_d = a[:, 0::2], a[:, 1::2]          # band / desc (rows, cols)
+    b_b, b_d = b[:, 0::2], b[:, 1::2]
+    band = (b_b > a_b).all(1, keepdim=True)
+    desc = (b_d > a_d).all(1, keepdim=True)
+    big = 1 << 30
+    lo_ = torch.minimum(torch.where(band, a_b, big), torch.where(desc, a_d, big))
+    hi_ = torch.maximum(torch.where(band, b_b, -big),
+                        torch.where(desc, b_d, -big))
+    box = torch.stack([lo_[:, 0], hi_[:, 0], lo_[:, 1], hi_[:, 1]], 1)
+    return torch.where(band | desc, box, 0).to(torch.int32).contiguous()
+
+
 def ori_desc_plain(dxs: torch.Tensor, dys: torch.Tensor, meta: torch.Tensor,
                    hp: int, fb: int):
     """Plain PyTorch version of the kernel: (angle (K,), raw (K, 16, 8)).
@@ -243,26 +310,55 @@ def _check(dxs, dys, meta, hp: int, fb: int):
         raise ValueError(f"ori_desc: bad hp={hp} / fb={fb}")
 
 
-def _launch(dxs, dys, meta, hp: int, fb: int):
+@functools.lru_cache(maxsize=None)
+def _kernel_fn():
     from tpu3drec_torch._nvcc import load
-    lib = load("ori_desc")
-    fn = lib.ori_desc_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
+    fn = load("ori_desc").ori_desc_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+        + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
-    K = meta.shape[0]
+    return fn
+
+
+def launch_kernel(dxs, dys, meta, hp: int, fb: int, angle, raw, work=None,
+                  boxes_out=None):
+    """One call of csrc/ori_desc.cu, writing every slot of `angle` (K,) and
+    `raw` (K, 16, 8): zeros for the invalid slots, the kernel's result
+    for the valid ones. `work`, (K + 2,) int32 scratch, receives the
+    valid-slot count, a counter and the list of valid slots (in no fixed
+    order). The kernel crops each slot to the box that `support_boxes`
+    defines, computing it with the same float32 operations; `boxes_out`,
+    a (K, 4) int32 tensor, receives those boxes for checks."""
     _, h, w = dxs.shape
-    angle = torch.empty(K, device=dxs.device, dtype=torch.float32)
-    raw = torch.empty(K, DESC_D * DESC_D, DESC_B, device=dxs.device,
-                      dtype=torch.float32)
+    K = meta.shape[0]
+    if meta.data_ptr() % 16 or raw.data_ptr() % 16:
+        raise ValueError("ori_desc: meta and raw must be 16-byte aligned")
+    if work is None:
+        work = torch.empty(K + 2, device=dxs.device, dtype=torch.int32)
     with torch.cuda.device(dxs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(dxs.data_ptr(), dys.data_ptr(), meta.data_ptr(), K, h, w,
-                 hp, fb, angle.data_ptr(), raw.data_ptr(), stream)
+        err = _kernel_fn()(
+            dxs.data_ptr(), dys.data_ptr(), meta.data_ptr(), work.data_ptr(),
+            K, h, w, hp, fb, SUPPORT_RADIUS_FCTR, SUPPORT_SLACK,
+            angle.data_ptr(), raw.data_ptr(),
+            0 if boxes_out is None else boxes_out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"ori_desc kernel launch failed: CUDA error {err}")
+    ori_desc.launches += 1
+
+
+def _launch(dxs, dys, meta, hp: int, fb: int):
+    """Outputs from one allocation, one call of the kernel library;
+    nothing is read back to the host."""
+    K = meta.shape[0]
+    nraw = DESC_D * DESC_D * DESC_B
+    out = torch.empty(K * (nraw + 1), device=dxs.device, dtype=torch.float32)
+    raw = out[:K * nraw].view(K, DESC_D * DESC_D, DESC_B)
+    angle = out[K * nraw:]
+    if K > 0:
+        if meta.data_ptr() % 16:
+            meta = meta.clone()            # the kernel reads rows as int4
+        launch_kernel(dxs, dys, meta, hp, fb, angle, raw)
     return angle, raw
 
 
@@ -272,15 +368,18 @@ def ori_desc(dxs: torch.Tensor, dys: torch.Tensor, meta: torch.Tensor,
 
     dxs, dys: (L, H, W) bf16 gradient stacks (images x layers flattened);
     meta: (K, 4) int32 from `prep_meta`, layers in [-1, L); hp, fb: the
-    padded stack height and fraction bits (`pad_dims`, `frac_bits`)."""
+    padded stack height and fraction bits (`pad_dims`, `frac_bits`).
+
+    On the card the kernel is bound by its arithmetic (an atan2, a sqrt
+    and two exp per support pixel, eight orientation tents per
+    descriptor pixel), not by bytes: it reads each slot's support box
+    once, mostly from L2. `ori_desc.launches` counts kernel launches."""
     _check(dxs, dys, meta, hp, fb)
     if dxs.device.type == "cpu":
         return ori_desc_plain(dxs, dys, meta, hp, fb)
     if dxs.device.type != "cuda":
         raise ValueError(f"ori_desc: unsupported device {dxs.device}")
-    out = _launch(dxs, dys, meta, hp, fb)
-    ori_desc.launches += 1
-    return out
+    return _launch(dxs, dys, meta, hp, fb)
 
 
 ori_desc.launches = 0

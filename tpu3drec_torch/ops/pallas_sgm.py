@@ -12,11 +12,17 @@ P2 = p2x100 / 100 as float32.
 `sgm_aggregate_batch` is the wrapper: CPU tensors go to
 `sgm_aggregate_batch_plain` (the reference's `_sgm_scan` as a Python
 loop), CUDA tensors to `sgm_aggregate_batch_kernel` and the hand-written
-kernel `csrc/sgm.cu` (or raise). On the card each axis is laid out as
-(X, streams, D) with `permute().contiguous()`, one kernel launch covers
-both axes, and the two results are summed in the horizontal layout and
-permuted back to (B, D, H, W). Kernel and plain version perform
-the same float operations in the same order, so they agree bit for bit.
+kernel `csrc/sgm.cu` (or raise). On the card the route reads the
+volumes as they lie, with no layout copy: one output and one scratch
+volume from `torch.empty`, then one call of the library, which enqueues
+the vertical kernel and then the horizontal one. The function is bound
+by bytes. The vertical phase scans 32-column groups (every access a
+128-byte row segment) with a cp.async ring and writes fwd_v + bwd_v into
+the output; the horizontal phase stages [D, 16-column] chunks of each
+row through shared memory, keeps fwd_h in the scratch volume and adds
+fwd_h + bwd_h into the output once. Kernel and plain version perform the
+same float operations in the same order and grouping, so they agree bit
+for bit.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import ctypes
 
 import torch
 
-MAX_DISPARITIES = 128   # csrc/sgm.cu: D <= 32 lanes x 4 registers
+MAX_DISPARITIES = 128   # csrc/sgm.cu: D <= 32 x MAX_NPL registers a lane
 
 
 def _dp_step(prev: torch.Tensor, c: torch.Tensor, p1: float,
@@ -73,56 +79,28 @@ def _check(volumes):
                          f"{MAX_DISPARITIES}")
 
 
-def sgm_layouts(volumes: torch.Tensor):
-    """The kernel's inputs: rows (W, B*H, D) and columns (H, B*W, D)."""
-    B, D, H, W = volumes.shape
-    return (volumes.permute(3, 0, 2, 1).reshape(W, B * H, D).contiguous(),
-            volumes.permute(2, 0, 3, 1).reshape(H, B * W, D).contiguous())
-
-
-def _launch(v_h, v_v, p1x100, p2x100):
-    from tpu3drec_torch._nvcc import load
-    fn = load("sgm").sgm_axes_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int] * 2 \
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    a_h = torch.empty_like(v_h)
-    a_v = torch.empty_like(v_v)
-    D = v_h.shape[2]
-    with torch.cuda.device(v_h.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(v_h.data_ptr(), a_h.data_ptr(), v_h.shape[0], v_h.shape[1],
-                 v_v.data_ptr(), a_v.data_ptr(), v_v.shape[0], v_v.shape[1],
-                 D, int(p1x100), int(p2x100), stream)
-    if err != 0:
-        raise RuntimeError(f"sgm kernel launch failed: CUDA error {err}")
-    return a_h, a_v
-
-
-def sgm_axes(v_h: torch.Tensor, v_v: torch.Tensor, p1x100: int = 15,
-             p2x100: int = 90):
-    """The kernel alone on laid-out CUDA volumes (`sgm_layouts`): both
-    axes' forward + backward aggregation, in the same layouts. One
-    launch, counted on `sgm_aggregate_batch.launches`."""
-    if v_h.device.type != "cuda" or v_v.device != v_h.device:
-        raise ValueError("sgm: the kernel takes CUDA tensors on one device")
-    if not (v_h.is_contiguous() and v_v.is_contiguous()) \
-            or v_h.shape[2] != v_v.shape[2]:
-        raise ValueError("sgm: need contiguous (X, S, D) volumes of one D")
-    out = _launch(v_h, v_v, p1x100, p2x100)
-    sgm_aggregate_batch.launches += 1
-    return out
-
-
 def sgm_aggregate_batch_kernel(volumes: torch.Tensor, p1x100: int = 15,
                                p2x100: int = 90) -> torch.Tensor:
-    """The kernel's route for (B, D, H, W) CUDA volumes: lay both axes
-    out, one launch, add the vertical result into the horizontal layout
-    (D stays innermost on both sides) and permute once to (B, D, H, W)."""
+    """The kernel's route for contiguous (B, D, H, W) float32 CUDA
+    volumes: one call of the kernel library (the vertical, then the
+    horizontal kernel), counted once on `sgm_aggregate_batch.launches`."""
+    if volumes.device.type != "cuda" or not volumes.is_contiguous():
+        raise ValueError("sgm: the kernel takes a contiguous CUDA tensor")
+    from tpu3drec_torch._nvcc import load
+    fn = load("sgm").sgm_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     B, D, H, W = volumes.shape
-    a_h, a_v = sgm_axes(*sgm_layouts(volumes), p1x100, p2x100)
-    both = a_h.view(W, B, H, D) + a_v.view(H, B, W, D).permute(2, 1, 0, 3)
-    return both.permute(1, 3, 2, 0).contiguous()
+    out = torch.empty_like(volumes)
+    scratch = torch.empty_like(volumes)
+    with torch.cuda.device(volumes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(volumes.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, D,
+                 H, W, int(p1x100), int(p2x100), stream)
+    if err != 0:
+        raise RuntimeError(f"sgm kernel launch failed: CUDA error {err}")
+    sgm_aggregate_batch.launches += 1
+    return out
 
 
 def sgm_aggregate_batch(volumes: torch.Tensor, p1x100: int = 15,

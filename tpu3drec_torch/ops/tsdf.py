@@ -17,6 +17,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from tpu3drec_torch.core.device import resolve_device
+
 
 def tsdf_fuse(depths: torch.Tensor, valids: torch.Tensor, Ks: torch.Tensor,
               Rs: torch.Tensor, ts: torch.Tensor, origin: torch.Tensor,
@@ -206,8 +208,11 @@ def tsdf_mesh(depths: np.ndarray, valids: np.ndarray, Ks: np.ndarray,
     """Fuse depth maps and extract the surface. Grid bounds default to the
     robust (2..98 percentile) box of the back-projected valid depth
     samples, padded by the truncation band; the fusion runs on `device`
-    (default: the CPU). Returns {verts, faces, tsdf, weight, origin,
-    voxel}. Raises ValueError when no depth sample is valid."""
+    (`core.device.resolve_device`: None means CUDA, and raises
+    RuntimeError without it; pass device="cpu" for the CPU). Returns
+    {verts, faces, tsdf, weight, origin, voxel}. Raises ValueError when
+    no depth sample is valid."""
+    dev = resolve_device(device)
     depths = np.asarray(depths, np.float32)
     valids = np.asarray(valids, bool)
     Ks = np.asarray(Ks, np.float32)
@@ -246,7 +251,6 @@ def tsdf_mesh(depths: np.ndarray, valids: np.ndarray, Ks: np.ndarray,
         np.ceil((hi + trunc - lo) / voxel).astype(int) + 1,
         resolution + 2 * int(trunc_voxels) + 2))
 
-    dev = torch.device("cpu") if device is None else torch.device(device)
     tsdf, weight = tsdf_fuse(
         torch.from_numpy(depths).to(dev), torch.from_numpy(valids).to(dev),
         torch.from_numpy(Ks), torch.from_numpy(Rs), torch.from_numpy(ts),
