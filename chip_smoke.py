@@ -13,8 +13,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
      every slot outside the bars listed with its histogram's peaks) and
      on an all-valid stress meta at the octave-0 and octave-4 shapes
      (borders, the detector's scale range, slots beyond it on the
-     uncached path, which may not miss), `knn2` int8 on the full batch
-     of pairs and float32 on two;
+     uncached path, which may not miss), `knn2` int8 bit for bit on the
+     full batch of pairs, on a full-occupancy stress input (the path's
+     shape, every column valid) and on `KNN2_CASES` (scattered masks,
+     duplicate columns, no or one valid column, ragged N and M, D 64 to
+     1024, `hamming_pm1`, norms too wide for the packed fold), each twice
+     for identical bits, and float32 on two pairs; `knn2` is timed at the
+     path's input and at full occupancy beside two yardsticks (f32 matmul
+     + topk, a bf16 tensor-core GEMM + topk);
   3. the main path: `make_pair_fn(max_features=2048, num_hypotheses=256)`
      on 96 pairs of 480x640 images, each a synthetic photo and a known
      similarity warp of it. Launch counts are read around one call, then
@@ -44,6 +50,7 @@ any result. It imports nothing of JAX.
 import json
 import math
 import os
+import re
 import subprocess
 import time
 
@@ -488,24 +495,188 @@ def check_ori_desc(torch, samples):
                 library_ms=None)
 
 
+# knn2 beyond the main path's input, each held bit for bit against the
+# plain version: (label, metric, pairs, N, M, D, masks). Masks: "scattered"
+# (random, about 30% valid, so the device list is not a prefix),
+# "duplicates" (exact copies of valid columns, rows of A equal to them:
+# value ties), "edge" (pair 0 no valid column, pair 1 one in the middle,
+# pair 2 only column 0, pair 3 scattered), "wide_norms" (scattered; pair 1's
+# norms raised by 2**24, too wide for the kernel's packed (value, column)
+# keys, so it takes the other fold)
+KNN2_CASES = [
+    ("scattered masks", "l2_int8", 8, 2048, 2048, 128, "scattered"),
+    ("duplicate columns", "l2_int8", 4, 512, 640, 128, "duplicates"),
+    ("no / one valid column", "l2_int8", 4, 256, 300, 128, "edge"),
+    ("N, M on no tile", "l2_int8", 3, 1000, 777, 128, "scattered"),
+    ("D 64", "l2_int8", 2, 300, 500, 64, "scattered"),
+    ("D 100, padded to 128", "l2_int8", 2, 300, 500, 100, "scattered"),
+    ("D 1024", "l2_int8", 2, 300, 500, 1024, "scattered"),
+    ("hamming_pm1, D 256", "hamming_pm1", 4, 1024, 1024, 256, "scattered"),
+    ("norms past the packed range", "l2_int8", 2, 300, 500, 128, "wide_norms"),
+]
+# the full-occupancy stress input: the path's shape, every column valid
+KNN2_FULL = (BATCH, MAX_FEATURES, MAX_FEATURES, 128)
+
+
+def sift_like_int8(torch, shape, gen):
+    """Quantised SIFT-like descriptors: 0..255 values, mostly small (an
+    exponential of mean 30, clipped), shifted by -128 to int8 as
+    `quantize_u8` does."""
+    u = torch.rand(shape, generator=gen, device=gen.device).clamp_(min=1e-12)
+    return ((-30.0 * torch.log(u)).round_().clamp_(0, 255) - 128).to(torch.int8)
+
+
+def knn2_operands(torch, metric, B, N, M, D, masks, seed, dev="cuda"):
+    """(a, b, bnorm, mask2) on `dev`. Half of B's columns are noisy copies
+    of rows of A, so rows have real nearest neighbours."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if metric == "hamming_pm1":
+        a = (torch.randint(0, 2, (B, N, D), generator=gen, device=dev)
+             * 2 - 1).to(torch.int8)
+        b = (torch.randint(0, 2, (B, M, D), generator=gen, device=dev)
+             * 2 - 1).to(torch.int8)
+    else:
+        a = sift_like_int8(torch, (B, N, D), gen)
+        b = sift_like_int8(torch, (B, M, D), gen)
+        k = min(N, M // 2)
+        src = torch.randint(0, N, (B, k), generator=gen, device=dev)
+        noise = torch.randint(-3, 4, (B, k, D), generator=gen, device=dev)
+        rows = a.gather(1, src[..., None].expand(B, k, D)).to(torch.int32)
+        b[:, :k] = (rows + noise).clamp_(-128, 127).to(torch.int8)
+    if masks == "all":
+        m2 = torch.ones(B, M, dtype=torch.bool, device=dev)
+    else:
+        m2 = torch.rand(B, M, generator=gen, device=dev) < 0.3
+    if masks == "duplicates":
+        # columns 100.. copied to 300.. and 301.. (every 2nd); rows 0..31
+        # of A equal to columns 100..131
+        b[:, 300:364:2] = b[:, 100:132]
+        b[:, 301:365:2] = b[:, 100:132]
+        m2[:, 100:132] = m2[:, 300:365] = True
+        a[:, :32] = b[:, 100:132]
+    elif masks == "edge":
+        m2[:3] = False
+        m2[1, M // 2] = True
+        m2[2, 0] = True
+    if metric == "hamming_pm1":
+        n2 = torch.zeros(B, M, dtype=torch.int32, device=dev)
+    else:
+        n2 = b.to(torch.int32).square().sum(-1, dtype=torch.int32)
+    if masks == "wide_norms":
+        n2[1] += 1 << 24
+    return a, b, n2, m2
+
+
+def knn2_equal(torch, pm, a, b, n2, m2, label):
+    """Kernel vs plain, indices and raw values on every row, bit for bit;
+    a second launch bit-identical."""
+    i_k, v_k = pm.knn2_raw(a, b, n2, m2)
+    i_k2, v_k2 = pm.knn2_raw(a, b, n2, m2)
+    i_p, v_p = pm.knn2_plain(a, b, n2, m2)
+    torch.cuda.synchronize()
+    if not (torch.equal(i_k, i_k2) and torch.equal(v_k, v_k2)):
+        fail(f"knn2: two launches differ at {label}")
+    if not (torch.equal(i_k, i_p) and torch.equal(v_k, v_p)):
+        bad = int(((i_k != i_p) | (v_k != v_p)).any(-1).sum())
+        fail(f"knn2 int8: {bad} rows differ from the plain version at {label}")
+    return float((v_k.double() - v_p.double()).abs().max())
+
+
+def knn2_bound(a, b, m2):
+    """(bound ms, bound_by): A, each valid column of B and its norm read
+    once, the mask read once, the top-2 written once; the products of
+    every row with every valid column on the int8 tensor cores."""
+    Bp, N, D = a.shape
+    M = b.shape[1]
+    m_valid = int(m2.sum())
+    bytes_ = Bp * N * D + m_valid * (D + 4) + Bp * M + Bp * N * 2 * 8
+    ops = 2.0 * N * m_valid * D
+    t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_INT8_OPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def knn2_library(torch, a, b, n2, m2):
+    """The two yardsticks as functions of no argument: (f32 matmul + topk,
+    (bf16 tensor-core GEMM + topk, its form)). int8 values are exact in
+    bf16 and float32 sums of D <= 1024 of their products stay below 2**24,
+    so both compute the same dot products exactly."""
+    af, bf = a.to(torch.float32), b.to(torch.float32).transpose(1, 2)
+    ah, bh = a.to(torch.bfloat16), b.to(torch.bfloat16).transpose(1, 2)
+    keep = m2[:, None, :]
+
+    def top2(dot):
+        d = n2[:, None, :] - 2 * dot
+        d = torch.where(keep, d, torch.full_like(d, 3.4e38))
+        return torch.topk(d, 2, dim=-1, largest=False)
+
+    def f32():
+        return top2(torch.matmul(af, bf))
+
+    try:
+        torch.bmm(ah[:1, :8], bh[:1, :, :8], out_dtype=torch.float32)
+
+        def bf16():
+            return top2(torch.bmm(ah, bh, out_dtype=torch.float32))
+        form = "torch.bmm(bf16, bf16, out_dtype=torch.float32) + topk"
+    except (TypeError, RuntimeError):
+        def bf16():
+            return top2(torch.stack([torch._int_mm(a[i], b[i].t())
+                                     for i in range(a.shape[0])]).float())
+        form = ("torch._int_mm per pair + topk (this torch's bmm has no "
+                "out_dtype)")
+    return f32, (bf16, form)
+
+
+def knn2_times(torch, pm, a, b, n2, m2, label, reps=REPS):
+    """ms of the kernel route and, from one profiled call, of its listing
+    and main kernels; ms of both yardsticks; the bound. Prints one line."""
+    ms = cuda_ms(torch, lambda: pm.knn2_raw(a, b, n2, m2), reps=reps)
+    by_kernel = device_ms_by_kernel(torch, lambda: pm.knn2_raw(a, b, n2, m2))
+    f32, (bf16, form) = knn2_library(torch, a, b, n2, m2)
+    f32_ms = cuda_ms(torch, f32, reps=2)
+    bf16_ms = cuda_ms(torch, bf16, reps=2)
+    bound, by = knn2_bound(a, b, m2)
+    parts = {}
+    for key, v in by_kernel.items():
+        name = re.search(r"knn2_\w+", key)
+        name = name.group() if name else key[:40]
+        parts[name] = parts.get(name, 0.0) + v
+    kernel_ms = ms_of(parts, "knn2")
+    print(f"knn2 at {label} ({int(m2.sum())} of {m2.numel()} columns valid): "
+          f"{ms:.4f} ms per call (CUDA events); device ms in one profiled "
+          f"call: " + (", ".join(f"{k} {v:.4f}" for k, v in sorted(parts.items()))
+                       or "not measured (the profiler recorded no kernel)")
+          + f"; bound {bound:.4f} ms ({by}); f32 matmul + topk {f32_ms:.3f} "
+          f"ms; {form} {bf16_ms:.3f} ms")
+    return dict(ms=ms, kernel_ms=kernel_ms, bound_ms=bound, bound_by=by,
+                library_ms=f32_ms, library_bf16_ms=bf16_ms)
+
+
 def check_knn2(torch, desc, mask, B):
-    """knn2 kernel vs plain: int8 on all B pairs (bit-equal), float32 on two
-    pairs (indices equal except near-ties, values within 1e-4)."""
+    """knn2 kernel vs plain: int8 bit for bit (indices and raw values on
+    every row, two launches identical) on all B pairs of the path, on the
+    full-occupancy stress input and on `KNN2_CASES`; float32 on two pairs
+    (indices equal except near-ties, values within 1e-4). Times the path's
+    input and the stress input."""
     from tpu3drec_torch.ops import match as mt
     from tpu3drec_torch.ops import pallas_match as pm
     q = mt.quantize_u8(desc)
     a, b = q[:B].contiguous(), q[B:].contiguous()
     n2 = b.to(torch.int32).square().sum(-1, dtype=torch.int32)
     m2 = mask[B:].contiguous()
-    i_k, v_k = pm.knn2_raw(a, b, n2, m2)
-    i_p, v_p = pm.knn2_plain(a, b, n2, m2)
-    torch.cuda.synchronize()
-    if not (torch.equal(i_k, i_p) and torch.equal(v_k, v_p)):
-        bad = int((i_k != i_p).any(-1).sum())
-        fail(f"knn2 int8: {bad} rows differ from the plain version")
-    max_err = float((v_k.double() - v_p.double()).abs().max())
+    max_err = knn2_equal(torch, pm, a, b, n2, m2, "the path's input")
     print(f"knn2 int8 vs plain at {tuple(a.shape)} x {tuple(b.shape)}: "
-          f"indices and squared distances bit-equal (max |err| {max_err})")
+          f"indices and squared distances bit-equal on every row (max |err| "
+          f"{max_err}); two launches bit-identical")
+    full = knn2_operands(torch, "l2_int8", *KNN2_FULL, "all", SEED + 11)
+    knn2_equal(torch, pm, *full, "full occupancy")
+    for i, (label, metric, *shape) in enumerate(KNN2_CASES):
+        knn2_equal(torch, pm, *knn2_operands(torch, metric, *shape, SEED + i),
+                   label)
+    print(f"knn2 int8 vs plain, bit-equal on every row and bit-identical "
+          f"twice: full occupancy {KNN2_FULL}; "
+          + "; ".join(f"{c[0]} {tuple(c[2:6])}" for c in KNN2_CASES))
 
     f1, f2 = desc[:2].contiguous(), desc[B:B + 2].contiguous()
     sq2 = (f2 * f2).sum(-1)
@@ -526,28 +697,19 @@ def check_knn2(torch, desc, mask, B):
           f"1e-4; best indices equal on all {int(clear.sum())} valid rows "
           f"without a near-tie (of {int(mask[:2].sum())} valid rows)")
 
-    ms = cuda_ms(torch, lambda: pm.knn2_raw(a, b, n2, m2))
+    path = knn2_times(torch, pm, a, b, n2, m2, "the path's input")
     plain_ms = cuda_ms(torch, lambda: pm.knn2_plain(a, b, n2, m2), reps=2)
-    af, bf = a.to(torch.float32), b.to(torch.float32)
-
-    def library():
-        d = n2[:, None, :] - 2 * torch.matmul(af, bf.transpose(1, 2))
-        d = torch.where(m2[:, None, :], d, torch.full_like(d, 3.4e38))
-        return torch.topk(d, 2, dim=-1, largest=False)
-
-    library_ms = cuda_ms(torch, library, reps=2)
-    Bp, N, D = a.shape
-    M = b.shape[1]
-    # masked columns never win and need no work: count the valid ones
-    m_valid = int(m2.sum())
-    bytes_ = Bp * N * D + m_valid * D + Bp * M * 5 + Bp * N * 2 * 8
-    ops = 2.0 * N * m_valid * D
-    t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_INT8_OPS * 1e3
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=library_ms)
+    stress = knn2_times(torch, pm, *full, f"full occupancy {KNN2_FULL}")
+    del full
+    return dict(max_abs_err=max_err, ms=path["ms"], plain_ms=plain_ms,
+                bound_ms=path["bound_ms"], bound_by=path["bound_by"],
+                library_ms=path["library_ms"],
+                library_bf16_ms=path["library_bf16_ms"],
+                kernel_ms=path["kernel_ms"], full_kernel_ms=stress["kernel_ms"],
+                full_ms=stress["ms"], full_bound_ms=stress["bound_ms"],
+                full_bound_by=stress["bound_by"],
+                full_library_ms=stress["library_ms"],
+                full_library_bf16_ms=stress["library_bf16_ms"])
 
 
 def _device_us(ev, self_only):
@@ -843,7 +1005,7 @@ def main():
           f"{time.perf_counter() - t0:.1f} s (parallel)")
     for name, text in reports.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("Function properties", "registers", "spill")):
                 print(f"  ptxas {name}: {line.strip()}")
     dev = torch.device("cuda")
 
@@ -948,7 +1110,9 @@ def main():
                         "max_abs_err": f["max_abs_err"], "ms": f["ms"],
                         "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
                         "bound_by": f["bound_by"],
-                        "library_ms": f["library_ms"]})
+                        "library_ms": f["library_ms"],
+                        **{k: v for k, v in f.items() if k.startswith(
+                            ("full_", "library_bf16", "kernel_ms"))}})
     print(f"chip_smoke wall time: {time.perf_counter() - t_main:.1f} s "
           f"(builds included)")
     print(json.dumps({"kernels": kernels}))

@@ -16,12 +16,15 @@ Element types: int8 with exact int32 accumulation (BIG = int32 max), or
 float32 (BIG = 3.4e38).
 
 `knn2_raw` is the wrapper: CPU tensors go to `knn2_plain`, CUDA tensors
-to the hand-written kernel `csrc/knn2.cu` (or raise).
+to the hand-written kernel `csrc/knn2.cu` (or raise). Its int8 path runs
+on the tensor cores, a 128-byte row of depth at a time: `pad_depth` pads
+D with zero columns to a multiple of 128, which changes no dot product.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -77,27 +80,57 @@ def _check(a, b, bnorm, mask2):
         raise ValueError("knn2: tensors must be contiguous")
 
 
-def _launch(a, b, bnorm, mask2):
+I8_DEPTH_STEP = 128
+
+
+def pad_depth(a: torch.Tensor, b: torch.Tensor):
+    """int8 operands as the kernel takes them: D padded with zero columns
+    to a multiple of `I8_DEPTH_STEP` (no copy when it already is one), rows
+    on 16-byte boundaries. float32 operands are returned as they are."""
+    if a.dtype != torch.int8:
+        return a, b
+    pad = -a.shape[2] % I8_DEPTH_STEP
+    if pad:
+        a = torch.nn.functional.pad(a, (0, pad))
+        b = torch.nn.functional.pad(b, (0, pad))
+    # the kernel copies 16 bytes at a time; a view may start off a boundary
+    a = a if a.data_ptr() % 16 == 0 else a.clone()
+    b = b if b.data_ptr() % 16 == 0 else b.clone()
+    return a, b
+
+
+@functools.cache
+def _library():
+    """The kernel's library, its C signatures set once."""
     from tpu3drec_torch._nvcc import load
     lib = load("knn2")
+    for fn in (lib.knn2_i8_launch, lib.knn2_f32_launch):
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+            + [ctypes.c_void_p] * 4
+        fn.restype = ctypes.c_int
+    lib.knn2_work_ints.restype = ctypes.c_longlong
+    return lib
+
+
+def _launch(a, b, bnorm, mask2):
+    lib = _library()
     fn = lib.knn2_i8_launch if a.dtype == torch.int8 else lib.knn2_f32_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
+    a, b = pad_depth(a, b)
     B, N, D = a.shape
     M = b.shape[1]
-    if a.dtype == torch.int8 and D % 4:
-        # the kernel reads 4 int8 per word; zero columns change no dot
-        a = torch.nn.functional.pad(a, (0, 4 - D % 4))
-        b = torch.nn.functional.pad(b, (0, 4 - D % 4))
-    words = a.shape[2] // 4 if a.dtype == torch.int8 else D
     idx = torch.empty(B, N, 2, device=a.device, dtype=torch.int32)
     val = torch.empty(B, N, 2, device=a.device, dtype=bnorm.dtype)
-    m8 = mask2.to(torch.uint8)
+    # each pair's list of valid columns, built by the C call
+    work = torch.empty(lib.knn2_work_ints(B, M), device=a.device,
+                       dtype=torch.int32)
+
+    # the C call launches on the current device
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(a.data_ptr(), b.data_ptr(), bnorm.data_ptr(), m8.data_ptr(),
-                 B, N, M, words, idx.data_ptr(), val.data_ptr(), stream)
+        # a bool tensor is one byte of 0 or 1 per element, as the kernel reads
+        err = fn(a.data_ptr(), b.data_ptr(), bnorm.data_ptr(),
+                 mask2.data_ptr(), B, N, M, D, work.data_ptr(),
+                 idx.data_ptr(), val.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"knn2 kernel launch failed: CUDA error {err}")
     return idx, val
