@@ -202,7 +202,11 @@ def test_port_imports_no_jax():
     code = ("import sys; import tpu3drec_torch, chip_smoke; "
             "import tpu3drec_torch.ops.stereo, tpu3drec_torch.ops.pallas_sgm, "
             "tpu3drec_torch.ops.pointcloud, tpu3drec_torch.ops.tsdf, "
-            "tpu3drec_torch.ops.mesh, tpu3drec_torch.pipelines.dense; "
+            "tpu3drec_torch.ops.mesh, tpu3drec_torch.pipelines.dense, "
+            "tpu3drec_torch.ops.lie, tpu3drec_torch.ops.five_point, "
+            "tpu3drec_torch.ops.epipolar, tpu3drec_torch.ops.triangulate, "
+            "tpu3drec_torch.ops.pnp, tpu3drec_torch.ops.ba, "
+            "tpu3drec_torch.sfm.refinement; "
             "bad = [m for m in ('jax', 'flax', 'tpu3drec', 'bench', "
             "'__graft_entry__') if m in sys.modules]; "
             "assert not bad, bad")

@@ -1,7 +1,8 @@
-"""Homography estimation: the closed-form 4-point solver inside RANSAC and
-the weighted DLT refit on the inliers.
+"""Two-view projective geometry: homography estimation (the closed-form
+4-point solver inside RANSAC and the weighted DLT refit on the inliers)
+and the normalised 8-point fundamental matrix with Sampson residuals.
 
-Port of the homography half of `tpu3drec/ops/geometry.py`. Points are
+Port of `tpu3drec/ops/geometry.py`. Points are
 `(..., N, 2)` float32 pixel coordinates; every function works over any
 leading batch dimensions. All arithmetic stays in float32, as in the
 reference (TF32 is off, package import).
@@ -44,6 +45,27 @@ def normalize_points(pts: torch.Tensor, mask: Optional[torch.Tensor] = None
     return centered * s[..., None, None], T
 
 
+def finite_or_zero(M: torch.Tensor) -> torch.Tensor:
+    """(..., m, n) matrices with every non-finite matrix replaced by zeros.
+
+    torch's `eigh` and `svd` raise on a non-finite input where the
+    reference's return NaN; a degenerate RANSAC sample inside a batch must
+    not stop the batch, so each decomposition's input passes through here
+    and the caller's validity mask rejects the model."""
+    ok = torch.isfinite(M).flatten(-2).all(-1)
+    return torch.where(ok[..., None, None], M, torch.zeros_like(M))
+
+
+def eigh(M: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`torch.linalg.eigh` (ascending) of `finite_or_zero(M)`."""
+    return torch.linalg.eigh(finite_or_zero(M))
+
+
+def svd(M: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`torch.linalg.svd` of `finite_or_zero(M)`."""
+    return torch.linalg.svd(finite_or_zero(M))
+
+
 def _nullvec_minimal_qr(A: torch.Tensor) -> torch.Tensor:
     """Exact unit right null vector of (..., n-1, n) matrices by Householder
     QR of A^T (the last column of Q)."""
@@ -84,14 +106,16 @@ def _smallest_singular_vector(A: torch.Tensor, refine: bool = True
     if m == n - 1:
         return _nullvec_minimal_qr(A)
     AtA = A.transpose(-1, -2) @ A
-    _, vecs = torch.linalg.eigh(AtA)                              # ascending
+    _, vecs = eigh(AtA)                                           # ascending
     v = vecs[..., :, 0]
     if not refine:
         return v
     ridge = 1e-7 * torch.diagonal(AtA, dim1=-2, dim2=-1).sum(-1) / n
     M = AtA + ridge[..., None, None] * torch.eye(n, dtype=A.dtype, device=A.device)
     for _ in range(2):
-        v = torch.linalg.solve(M, v)
+        # solve_ex: a singular system gives non-finite values that the
+        # caller's validity mask rejects, where solve would raise (and sync)
+        v = torch.linalg.solve_ex(M, v)[0]
         v = v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True),
                             min=1e-30)
     return v
@@ -145,6 +169,45 @@ def homography_transfer_error(H: torch.Tensor, pts1: torch.Tensor,
     proj = p[..., :2] / torch.where(bad, torch.ones_like(z), z)[..., None]
     err = ((proj - pts2) ** 2).sum(-1)
     return torch.where(bad, torch.full_like(err, 1e12), err)
+
+
+def _adj3(M: torch.Tensor) -> torch.Tensor:
+    """Closed-form adjugate of (..., 3, 3) matrices (the inverse up to
+    1/det, which is all a projective quantity needs)."""
+    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    return torch.stack([
+        torch.stack([e * i - f * h, c * h - b * i, b * f - c * e], -1),
+        torch.stack([f * g - d * i, a * i - c * g, c * d - a * f], -1),
+        torch.stack([d * h - e * g, b * g - a * h, a * e - b * d], -1),
+    ], -2)
+
+
+def _homography_4pt_closed(p1: torch.Tensor, p2: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact minimal 4-point homography by the projective-basis method in
+    matrix form: B maps e1, e2, e3, e1+e2+e3 to the 4 points (columns
+    lambda_i p_i, lambda = adj(M) p4), so H = B2 adj(B1). p1, p2
+    (..., 4, 2) -> (H (..., 3, 3), valid). `_homography_4pt_flat` is the
+    same math written out as scalar formulas."""
+    p1n, T1 = normalize_points(p1)
+    p2n, T2 = normalize_points(p2)
+
+    def basis(p):
+        ph = to_homogeneous(p)
+        M = ph[..., :3, :].transpose(-1, -2)                  # columns p1..p3
+        lam = (_adj3(M) @ ph[..., 3, :, None])[..., 0]        # ~ det(M) M^-1 p4
+        return M * lam[..., None, :], lam
+
+    B1, lam1 = basis(p1n)
+    B2, lam2 = basis(p2n)
+    H = _similarity_inv(T2) @ (B2 @ _adj3(B1)) @ T1
+    scale = H[..., 2, 2]
+    ok = ((lam1.abs().amin(-1) > 1e-12) & (lam2.abs().amin(-1) > 1e-12)
+          & (scale.abs() > 1e-12))
+    H = H / torch.where(ok, scale, torch.ones_like(scale))[..., None, None]
+    return H, ok & torch.isfinite(H).flatten(-2).all(-1)
 
 
 def _homography_4pt_flat(p1: torch.Tensor, p2: torch.Tensor
@@ -278,6 +341,99 @@ def find_homography(pts1: torch.Tensor, pts2: torch.Tensor,
         result = result._replace(
             model=model, inliers=inliers, num_inliers=num,
             inlier_ratio=num / n_valid,
+            residuals=torch.where(better[:, None], res2, result.residuals))
+    if single:
+        result = RansacResult(*(t[0] for t in result))
+    return result
+
+
+def solve_fundamental_8pt(p1: torch.Tensor, p2: torch.Tensor,
+                          w: Optional[torch.Tensor] = None,
+                          fast: bool = False
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Normalised 8-point fundamental matrix (p2^T F p1 = 0) from (..., N, 2)
+    points, optionally weighted. Returns (F (..., 3, 3), valid (...)).
+
+    fast=True (the RANSAC hypothesis path) skips the eigenvector polish
+    and the rank-2 projection: minimal-sample solutions only score
+    inliers, and the refit enforces both."""
+    p1n, T1 = normalize_points(p1, w)
+    p2n, T2 = normalize_points(p2, w)
+    x, y = p1n[..., 0], p1n[..., 1]
+    u, v = p2n[..., 0], p2n[..., 1]
+    one = torch.ones_like(x)
+    A = torch.stack([u * x, u * y, u, v * x, v * y, v, x, y, one], -1)
+    if w is not None:
+        A = A * torch.sqrt(w.to(A.dtype))[..., None]
+    f = _smallest_singular_vector(A, refine=not fast)
+    Fn = f.reshape(f.shape[:-1] + (3, 3))
+    if not fast:
+        U, S, Vt = svd(Fn)
+        S = torch.cat([S[..., :2], torch.zeros_like(S[..., 2:])], -1)
+        Fn = (U * S[..., None, :]) @ Vt
+    F = T2.transpose(-1, -2) @ Fn @ T1
+    norm = torch.linalg.matrix_norm(F)
+    valid = norm > 1e-12
+    F = F / torch.where(valid, norm, torch.ones_like(norm))[..., None, None]
+    return F, valid & torch.isfinite(F).flatten(-2).all(-1)
+
+
+def sampson_error(F: torch.Tensor, pts1: torch.Tensor,
+                  pts2: torch.Tensor) -> torch.Tensor:
+    """(..., N) first-order (Sampson) squared epipolar error: F (..., 3, 3)
+    and pts (..., N, 2) broadcast over their leading dimensions."""
+    x1 = to_homogeneous(pts1)
+    x2 = to_homogeneous(pts2)
+    Fx1 = x1 @ F.transpose(-1, -2)        # F @ x1
+    Ftx2 = x2 @ F                         # F^T @ x2
+    num = (x2 * Fx1).sum(-1) ** 2
+    den = Fx1[..., 0] ** 2 + Fx1[..., 1] ** 2 + Ftx2[..., 0] ** 2 \
+        + Ftx2[..., 1] ** 2
+    return num / torch.clamp(den, min=1e-12)
+
+
+def _f_solver(p1, p2):
+    return solve_fundamental_8pt(p1, p2, fast=True)
+
+
+def _sampson_residuals(F: torch.Tensor, pts1: torch.Tensor,
+                       pts2: torch.Tensor) -> torch.Tensor:
+    """RANSAC residual_fn: models (B, K, 3, 3), points (B, N, 2) ->
+    (B, K, N)."""
+    return sampson_error(F, pts1[:, None], pts2[:, None])
+
+
+def find_fundamental(pts1: torch.Tensor, pts2: torch.Tensor,
+                     mask: Optional[torch.Tensor] = None,
+                     threshold: float = 3.0,
+                     num_hypotheses: int = 512,
+                     generator: Optional[torch.Generator] = None,
+                     refit: bool = True,
+                     u: Optional[torch.Tensor] = None) -> RansacResult:
+    """RANSAC fundamental matrix (cv2.findFundamentalMat equivalent) over
+    (N, 2) or (B, N, 2) points; `u` injects the (K, 8) uniforms."""
+    single = pts1.ndim == 2
+    if single:
+        pts1, pts2 = pts1[None], pts2[None]
+        mask = None if mask is None else mask[None]
+    if mask is None:
+        mask = torch.ones(pts1.shape[:2], dtype=torch.bool, device=pts1.device)
+    result = ransac(pts1, pts2, mask, solver=_f_solver,
+                    residual_fn=_sampson_residuals, sample_size=8,
+                    num_hypotheses=num_hypotheses, threshold=threshold,
+                    generator=generator, u=u)
+    if refit:
+        F2, ok = solve_fundamental_8pt(pts1, pts2,
+                                       result.inliers.to(pts1.dtype))
+        res2 = sampson_error(F2, pts1, pts2)
+        inl2 = (res2 <= threshold ** 2) & mask
+        better = ok & (inl2.sum(-1) >= result.num_inliers) & result.success
+        n_valid = torch.clamp(mask.sum(-1, dtype=torch.int32), min=1)
+        inliers = torch.where(better[:, None], inl2, result.inliers)
+        num = inliers.sum(-1, dtype=torch.int32)
+        result = result._replace(
+            model=torch.where(better[:, None, None], F2, result.model),
+            inliers=inliers, num_inliers=num, inlier_ratio=num / n_valid,
             residuals=torch.where(better[:, None], res2, result.residuals))
     if single:
         result = RansacResult(*(t[0] for t in result))

@@ -15,6 +15,7 @@ the reference's Floyd sampling over valid ranks and its searchsorted.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -33,10 +34,11 @@ class RansacResult(NamedTuple):
 
 def draw_uniform(num_hypotheses: int, sample_size: int,
                  generator: torch.Generator, device=None) -> torch.Tensor:
-    """(K, s) int32 uniforms in [0, 2**31 - 1), the reference's range."""
+    """(K, s) int32 uniforms in [0, 2**31 - 1), the reference's range,
+    drawn on the generator's device and moved to `device`."""
     return torch.randint(0, _U_HIGH, (num_hypotheses, sample_size),
-                         generator=generator, device=device,
-                         dtype=torch.int64).to(torch.int32)
+                         generator=generator, device=generator.device,
+                         dtype=torch.int64).to(device=device, dtype=torch.int32)
 
 
 def ranks_to_indices(u: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -69,17 +71,19 @@ def ranks_to_indices(u: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 def ransac(pts1: torch.Tensor, pts2: torch.Tensor, mask: torch.Tensor, *,
            solver: Callable, residual_fn: Callable, sample_size: int,
-           num_hypotheses: int = 512, threshold: float = 4.0,
-           min_inliers: int = 0,
+           num_hypotheses: int = 512, models_per_sample: int = 1,
+           threshold=4.0, min_inliers: int = 0,
            generator: Optional[torch.Generator] = None,
            u: Optional[torch.Tensor] = None) -> RansacResult:
-    """Masked RANSAC over (B, N, 2) correspondences.
+    """Masked RANSAC over (B, N, D1) / (B, N, D2) correspondences.
 
-    solver(p1 (..., s, 2), p2 (..., s, 2)) -> (model (..., P), valid (...)).
-    residual_fn(model (B, K, P), pts1 (B, N, 2), pts2) -> (B, K, N)
-    squared residuals (px^2). threshold: inlier gate in pixels. The
-    samples come from `u` when given, else from `generator` (seed 0 when
-    both are None)."""
+    solver(p1 (..., s, D1), p2 (..., s, D2)) -> (model (..., P...), valid
+    (...)); with models_per_sample R > 1 the solver returns (..., R, P...)
+    models and (..., R) flags (the 5-point solver's up to 10 roots), which
+    are flattened to (B, K*R, ...). residual_fn(models (B, K*R, P...),
+    pts1, pts2) -> (B, K*R, N) squared residuals (px^2). threshold: inlier
+    gate in pixels, a float or a (B,) tensor. The samples come from `u`
+    when given, else from `generator` (seed 0 when both are None)."""
     B, n = mask.shape
     if u is None:
         if generator is None:
@@ -87,14 +91,20 @@ def ransac(pts1: torch.Tensor, pts2: torch.Tensor, mask: torch.Tensor, *,
         u = draw_uniform(num_hypotheses, sample_size, generator, pts1.device)
     idx = ranks_to_indices(u.to(pts1.device), mask)          # (B, K, s)
     K = idx.shape[1]
-    flat = idx.reshape(B, -1, 1).expand(-1, -1, 2)
-    s1 = pts1.gather(1, flat).reshape(B, K, sample_size, 2)
-    s2 = pts2.gather(1, flat).reshape(B, K, sample_size, 2)
+    flat = idx.reshape(B, -1, 1)
+    s1 = pts1.gather(1, flat.expand(-1, -1, pts1.shape[-1])).reshape(
+        B, K, sample_size, pts1.shape[-1])
+    s2 = pts2.gather(1, flat.expand(-1, -1, pts2.shape[-1])).reshape(
+        B, K, sample_size, pts2.shape[-1])
 
     models, valid = solver(s1, s2)
-    res = residual_fn(models, pts1, pts2)                     # (B, K, N)
-    thr2 = torch.tensor(threshold, dtype=torch.float32) ** 2
-    thr2 = thr2.to(res.device)
+    if models_per_sample > 1:
+        models = models.reshape((B, K * models_per_sample) + models.shape[3:])
+        valid = valid.reshape(B, K * models_per_sample)
+    res = residual_fn(models, pts1, pts2)                     # (B, K*R, N)
+    thr2 = torch.as_tensor(threshold, dtype=torch.float32).to(res.device) ** 2
+    if thr2.ndim:
+        thr2 = thr2[:, None, None]
     inl = (res <= thr2) & mask[:, None, :]
     score = torch.where(inl, thr2 - res, torch.zeros_like(res)).sum(-1)
     score = torch.where(valid, score, torch.full_like(score, -1.0))
@@ -117,3 +127,14 @@ def ransac(pts1: torch.Tensor, pts2: torch.Tensor, mask: torch.Tensor, *,
         success=success,
         residuals=best_res,
     )
+
+
+def num_hypotheses_for(conf: float, inlier_ratio: float, sample_size: int,
+                       cap: int = 8192) -> int:
+    """Classical RANSAC iteration count N = log(1-p)/log(1-w^s), capped."""
+    w = max(min(inlier_ratio, 0.999), 1e-3)
+    denom = math.log(max(1.0 - w ** sample_size, 1e-12))
+    if denom >= 0:
+        return cap
+    n = math.log(max(1.0 - conf, 1e-12)) / denom
+    return int(min(max(math.ceil(n), 32), cap))
