@@ -50,9 +50,20 @@ Phases, each of which raises (and so exits non-zero) on failure:
      BA ms/LM-iter and peak memory; then pair 0, PnP, the dryrun BA problem
      and a 3-camera dense-Schur window against the CPU plain path with the
      same draws;
-  6. one JSON line with every kernel's launches, error, time, bound and
+  6. the incremental SfM pipeline (`SfMPipeline(SfMConfig()).reconstruct`)
+     at bench.py:bench_sfm's folder: 50 views of 640x480 around 15,000
+     points (the port's `make_sfm_scene`). One cold run, with the kernels'
+     launch counts read around it (0: no TPU kernel lies on this path),
+     then two steady runs (one when a run takes over PIPE_RUN_LIMIT_S)
+     give views/s; every view must register, the final mean reprojection
+     stay under 1 px and every consecutive relative rotation within 1 deg
+     of the truth; the per-phase split of the last run; one profiled run
+     of a 12-view cut (busy share, the sfm.* ranges' host and device
+     time, device time by kernel); tests/test_sfm_pipeline.py's 5-view
+     scene on the card against the CPU plain path;
+  7. one JSON line with every kernel's launches, error, time, bound and
      the plain and library yardsticks;
-  7. last line: {"ok": true, "device": {...}}.
+  8. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or without the package beside it, it fails before printing
 any result. It imports nothing of JAX.
@@ -102,6 +113,21 @@ TWO_VIEW_BARS = {"5point": (0.5, 2.0, 0.9), "8point": (2.0, 10.0, 0.5)}
 PNP_N = 2048
 PNP_HYPOTHESES = 512
 BA_CAMS, BA_PTS, BA_OBS_PER_PT = 50, 100_000, 5
+
+# the SfM pipeline: bench.py:bench_sfm's folder (the port's
+# bench/synthetic.py:make_sfm_scene, 640x480, pair_window 2, 0.4 px noise,
+# 0.85 visibility) and its default SfMConfig
+PIPE_VIEWS, PIPE_POINTS = 50, 15000
+PIPE_PROFILE_VIEWS = 12
+PIPE_STEADY_RUNS = 2
+PIPE_RUN_LIMIT_S = 150      # one steady run instead of two above this
+PIPE_REPROJ_BAR = 1.0       # final mean reprojection (px); the noise is 0.4
+PIPE_ROT_BAR_DEG = 1.0      # consecutive relative rotations vs the truth
+# card against the CPU plain path on tests/test_sfm_pipeline.py's scene
+PIPE_CPU_POINTS_RTOL = 0.10
+PIPE_CPU_REPROJ_PX = 0.1
+PIPE_CPU_ROT_DEG = 0.25
+PIPE_PHASES = ("rank_s", "mine_s", "pnp_s", "tri_s", "prog_s", "ext_s", "ba_s")
 
 # NVIDIA H100 SXM data-sheet peaks (dense)
 PEAK_BYTES_PER_S = 3.35e12
@@ -1369,6 +1395,185 @@ def run_sfm(torch, card, dev):
                                                generator=gen), "sfm.", top=6)
 
 
+def small_sfm_scene(n_views=5, n_pts=250, noise=0.4, seed=0):
+    """tests/test_sfm_pipeline.py:make_scene's folder (cameras on an arc
+    looking at a point cloud, consecutive-pair matches), its rotations
+    from the port's Rodrigues. Returns (matches_data, image_info, views,
+    names)."""
+    from tpu3drec_torch.ops.lie import exp_so3_np
+    rng = np.random.default_rng(seed)
+    Wd, Hd = 640, 480
+    K = np.array([[700, 0, Wd / 2], [0, 700, Hd / 2], [0, 0, 1]], np.float64)
+    X = rng.uniform(-4, 4, size=(n_pts, 3)) + np.array([0, 0, 12.0])
+    views = []
+    for i in range(n_views):
+        ang = (i - n_views / 2) * 0.12
+        R = exp_so3_np(np.array([0.0, ang, 0.0]))
+        c = np.array([6 * np.sin(ang), 0.2 * i, 12 - 6 * np.cos(ang) + 0.0])
+        views.append((R, -R @ c))
+
+    def project(R, t):
+        Xc = (R @ X.T + t[:, None]).T
+        uv = (K @ Xc.T).T
+        uv = uv[:, :2] / uv[:, 2:3]
+        vis = (Xc[:, 2] > 0.5) & (uv[:, 0] > 0) & (uv[:, 0] < Wd) \
+            & (uv[:, 1] > 0) & (uv[:, 1] < Hd)
+        return uv, vis
+
+    names = [f"img_{i:02d}.png" for i in range(n_views)]
+    matches_data = {}
+    for i in range(n_views - 1):
+        for j in (i + 1, i + 2):
+            if j >= n_views:
+                continue
+            uv_i, vis_i = project(*views[i])
+            uv_j, vis_j = project(*views[j])
+            vis = vis_i & vis_j
+            corr = np.concatenate([
+                uv_i[vis] + noise * rng.standard_normal((vis.sum(), 2)),
+                uv_j[vis] + noise * rng.standard_normal((vis.sum(), 2)),
+            ], axis=1)
+            matches_data[(names[i], names[j])] = {
+                "correspondences": corr.tolist(),
+                "num_matches": int(vis.sum()), "quality_score": 0.8}
+    image_info = {n: {"name": n, "width": Wd, "height": Hd} for n in names}
+    return matches_data, image_info, views, names
+
+
+def consecutive_rotation_errors(recon, Rs, names):
+    """Angle (deg) between each consecutive registered pair's relative
+    rotation and the one of the rotations Rs (one per name)."""
+    out = []
+    for a in range(len(names) - 1):
+        if names[a] in recon.cameras and names[a + 1] in recon.cameras:
+            R_est = recon.cameras[names[a + 1]].R @ recon.cameras[names[a]].R.T
+            out.append(rot_err_deg(R_est, Rs[a + 1] @ Rs[a].T))
+    return np.asarray(out)
+
+
+def phase_split(history):
+    """bench.py:bench_sfm's per-phase sums over one run's history."""
+    prof = {}
+    for h in history:
+        if h.get("phase") != "add_view":
+            continue
+        for k in PIPE_PHASES:
+            prof[k] = round(prof.get(k, 0.0) + h.get(k, 0.0), 3)
+        prof["ba_iters"] = prof.get("ba_iters", 0) + int(h.get("ba_iters", 0))
+        prof["views"] = prof.get("views", 0) + 1
+    for h in history:
+        if h.get("phase") in ("init", "global_ba", "bootstrap"):
+            prof[h["phase"] + "_s"] = round(h.get("time_s", 0.0), 3)
+    return prof
+
+
+def sfm_pipeline_run(torch, matches_data, image_info, device):
+    """One SfMPipeline(SfMConfig()).reconstruct on `device`; returns
+    (pipeline, reconstruction, seconds)."""
+    import tpu3drec_torch as tv
+    pipe = tv.SfMPipeline(tv.SfMConfig(), device=device)
+    t0 = time.perf_counter()
+    recon = pipe.reconstruct(dict(matches_data), image_info)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return pipe, recon, time.perf_counter() - t0
+
+
+def run_pipeline(torch, card, dev):
+    """Phase 6: the incremental SfM pipeline at bench_sfm's 50 views on
+    the card, against its bars, profiled on a 12-view cut, and held
+    against the CPU plain path on the 5-view test scene."""
+    from tpu3drec_torch.bench.synthetic import make_sfm_scene
+    from tpu3drec_torch.ops import pallas_match as pm
+    from tpu3drec_torch.ops import pallas_sample as ps
+    from tpu3drec_torch.ops import pallas_sgm as psg
+    from tpu3drec_torch.sfm.quality import reprojection_errors
+
+    t_phase = time.perf_counter()
+    md, info, gt = make_sfm_scene(n_views=PIPE_VIEWS, n_pts=PIPE_POINTS)
+    ps.ori_desc.launches = pm.knn2_raw.launches = 0
+    psg.sgm_aggregate_batch.launches = 0
+    pipe, recon, cold = sfm_pipeline_run(torch, md, info, dev)
+    launches = {"ori_desc": ps.ori_desc.launches, "knn2": pm.knn2_raw.launches,
+                "sgm": psg.sgm_aggregate_batch.launches}
+    print(f"launches in the SfM pipeline run: {launches} (no TPU kernel "
+          f"lies on this path: the reference computes it in plain XLA)")
+    if any(launches.values()):
+        fail("the SfM pipeline launched a kernel of another path")
+    print(f"SfM pipeline cold run ({PIPE_VIEWS} views, {PIPE_POINTS} points): "
+          f"{recon.num_cameras / cold:.4f} views/s ({cold:.2f} s)")
+    steady = []
+    for _ in range(PIPE_STEADY_RUNS):
+        pipe, recon, dt = sfm_pipeline_run(torch, md, info, dev)
+        steady.append(dt)
+        if dt > PIPE_RUN_LIMIT_S:
+            print(f"a steady run took {dt:.1f} s > {PIPE_RUN_LIMIT_S} s: "
+                  f"one steady run only")
+            break
+    rates = [recon.num_cameras / dt for dt in steady]
+    errs = reprojection_errors(recon)
+    mre = float(np.mean(errs)) if len(errs) else np.inf
+    rot = consecutive_rotation_errors(recon, [R for R, _ in gt["views"]],
+                                      gt["names"])
+    init = next(h for h in pipe.history if h["phase"] == "init")
+    print(f"SfM pipeline steady: {float(np.median(rates)):.4f} views/s "
+          f"(median of {len(rates)}: "
+          f"{', '.join(f'{r:.4f}' for r in rates)}; "
+          f"{', '.join(f'{dt:.2f}' for dt in steady)} s); cold "
+          f"{recon.num_cameras / cold:.4f} views/s; on {card}")
+    print(f"SfM pipeline result: {recon.num_cameras} cameras, "
+          f"{recon.num_points} points, {recon.num_observations} observations, "
+          f"final mean reprojection {mre:.4f} px, consecutive relative "
+          f"rotations within {rot.max() if len(rot) else np.inf:.4f} deg of "
+          f"the truth, init pair {tuple(init['pair'])}")
+    print(json.dumps({"metric": "sfm per-phase profile (last steady run)",
+                      **phase_split(pipe.history)}))
+    if recon.num_cameras != PIPE_VIEWS:
+        fail(f"the SfM pipeline registered {recon.num_cameras} of "
+             f"{PIPE_VIEWS} views")
+    if not mre < PIPE_REPROJ_BAR:
+        fail(f"SfM pipeline: final mean reprojection must be under "
+             f"{PIPE_REPROJ_BAR} px")
+    if len(rot) != PIPE_VIEWS - 1 or not rot.max() < PIPE_ROT_BAR_DEG:
+        fail(f"SfM pipeline: every consecutive relative rotation must be "
+             f"within {PIPE_ROT_BAR_DEG} deg of the truth")
+    del pipe, recon
+
+    # one steady run of a 12-view cut, profiled
+    md12, info12, _ = make_sfm_scene(n_views=PIPE_PROFILE_VIEWS,
+                                     n_pts=PIPE_POINTS)
+    print(f"profiled SfM pipeline run ({PIPE_PROFILE_VIEWS} views, "
+          f"{PIPE_POINTS} points; the sfm.* ranges sum over the views):")
+    profile_call(torch, lambda: sfm_pipeline_run(torch, md12, info12, dev),
+                 "sfm.", top=15)
+
+    # the card against the CPU plain path on the 5-view test scene
+    smd, sinfo, sviews, snames = small_sfm_scene()
+    (pc, rc, dc), (ph, rh, dh) = (sfm_pipeline_run(torch, smd, sinfo, d)
+                                  for d in (dev, torch.device("cpu")))
+    mc = float(np.mean(reprojection_errors(rc)))
+    mh = float(np.mean(reprojection_errors(rh)))
+    drot = consecutive_rotation_errors(rc, [rh.cameras[n].R for n in snames],
+                                       snames)
+    ic = next(h for h in pc.history if h["phase"] == "init")["pair"]
+    ih = next(h for h in ph.history if h["phase"] == "init")["pair"]
+    print(f"SfM pipeline, 5-view test scene, card vs CPU plain path: init "
+          f"pair {tuple(ic)} vs {tuple(ih)}, cameras {sorted(rc.cameras)} vs "
+          f"{sorted(rh.cameras)}, points {rc.num_points} vs {rh.num_points}, "
+          f"mean reprojection {mc:.4f} vs {mh:.4f} px, consecutive relative "
+          f"rotations within {drot.max() if len(drot) else np.inf:.4f} deg "
+          f"({dc:.2f} s vs {dh:.2f} s)")
+    if tuple(ic) != tuple(ih) or sorted(rc.cameras) != sorted(rh.cameras) \
+            or abs(rc.num_points - rh.num_points) > PIPE_CPU_POINTS_RTOL * rh.num_points \
+            or abs(mc - mh) > PIPE_CPU_REPROJ_PX \
+            or len(drot) != len(snames) - 1 or not drot.max() < PIPE_CPU_ROT_DEG:
+        fail(f"SfM pipeline: the card disagrees with the CPU plain path "
+             f"(same init pair and views, points within "
+             f"{100 * PIPE_CPU_POINTS_RTOL:.0f}%, mean reprojection within "
+             f"{PIPE_CPU_REPROJ_PX} px, rotations within {PIPE_CPU_ROT_DEG} deg)")
+    print(f"SfM pipeline phase on {card}: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "tpu3drec_torch", "csrc")):
@@ -1491,7 +1696,10 @@ def main():
     # ---- 5. SfM geometry and bundle adjustment
     run_sfm(torch, card, dev)
 
-    # ---- 6. the kernels line
+    # ---- 6. the incremental SfM pipeline
+    run_pipeline(torch, card, dev)
+
+    # ---- 7. the kernels line
     sources = {
         "ori_desc": ("tpu3drec_torch/csrc/ori_desc.cu",
                      "tpu3drec/ops/pallas_sample.py:541"),

@@ -200,5 +200,24 @@ def test_cg_matches_dense_and_sharded_path_raises(scene):
     cg = tb.bundle_adjust(tp, tb.BAConfig(max_iters=10, schur_solver="cg"))
     np.testing.assert_allclose(cg.points.numpy(), dense.points.numpy(), atol=0.05)
     assert float(cg.cost_final) <= float(dense.cost_final) * 1.05
-    with pytest.raises(NotImplementedError, match="Queue 1 #15"):
+    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
         tb.bundle_adjust(tp, axis_name="points")
+
+
+def test_residual_of_a_diverged_point_stays_nan_like_jax():
+    """A NaN point (a diverged LM step) has a NaN residual in both
+    packages, so the step costs NaN and LM rejects it. torch.sign(nan) is
+    0 where jnp.sign(nan) is nan: the behind-camera sentinel turned such a
+    step into a zero cost, LM accepted it, and a 41-camera CG window of
+    the 50-view SfM scene ended with NaN points."""
+    cam = np.array([0.01, 0.02, 0.0, 0.1, 0.0, 0.0, 500, 500, 320, 240],
+                   np.float32)
+    uv = np.array([300.0, 200.0], np.float32)
+    for X in ([np.nan, 0.0, 5.0], [0.0, 0.0, np.nan], [0.0, 0.0, -5.0],
+              [0.1, 0.2, 5.0]):
+        X = np.asarray(X, np.float32)
+        ref = np.asarray(jb._residual_one(jnp.asarray(cam), jnp.asarray(X),
+                                          jnp.asarray(uv)))
+        got = tb._residual(torch.tensor(cam), torch.tensor(X),
+                           torch.tensor(uv)).numpy()
+        np.testing.assert_allclose(got, ref, rtol=1e-5, equal_nan=True)

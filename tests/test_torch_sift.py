@@ -206,7 +206,13 @@ def test_port_imports_no_jax():
             "tpu3drec_torch.ops.lie, tpu3drec_torch.ops.five_point, "
             "tpu3drec_torch.ops.epipolar, tpu3drec_torch.ops.triangulate, "
             "tpu3drec_torch.ops.pnp, tpu3drec_torch.ops.ba, "
-            "tpu3drec_torch.sfm.refinement; "
+            "tpu3drec_torch.sfm.refinement, tpu3drec_torch.sfm, "
+            "tpu3drec_torch.sfm.pipeline, tpu3drec_torch.sfm.reconstruction, "
+            "tpu3drec_torch.sfm.correspondence, tpu3drec_torch.sfm.pair_selector, "
+            "tpu3drec_torch.sfm.intrinsics, tpu3drec_torch.sfm.quality, "
+            "tpu3drec_torch.io, tpu3drec_torch.io.colmap, "
+            "tpu3drec_torch.io.batch_pickle, tpu3drec_torch.bench, "
+            "tpu3drec_torch.bench.synthetic; "
             "bad = [m for m in ('jax', 'flax', 'tpu3drec', 'bench', "
             "'__graft_entry__') if m in sys.modules]; "
             "assert not bad, bad")

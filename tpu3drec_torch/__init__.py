@@ -4,7 +4,9 @@ A second package beside the JAX reference `tpu3drec`: the same
 mask-padded data model, the SIFT pair step (detect -> int8 2-NN ratio
 match -> homography RANSAC), the SfM geometry and bundle adjustment
 (5-point / 8-point essential RANSAC -> pose -> triangulation -> PnP ->
-Schur LM, `iterative_refinement`) and the dense stage (rectify -> SGM
+Schur LM, `iterative_refinement`), the incremental SfM pipeline
+(`SfMPipeline`, `reconstruct_scene`: matches -> `Reconstruction` and its
+exports) and the dense stage (rectify -> SGM
 stereo -> depth fusion -> point cloud -> TSDF mesh,
 `run_dense_reconstruction`), with the reference's Pallas TPU kernels rewritten as hand-written CUDA
 C++ kernels for sm_90a (`csrc/`). Every kernel has a plain PyTorch version of the same function
@@ -54,17 +56,30 @@ from tpu3drec_torch.pipelines.dense import (  # noqa: E402
     DenseReconstructionPipeline,
     run_dense_reconstruction,
 )
+from tpu3drec_torch.sfm import (  # noqa: E402
+    Camera,
+    Reconstruction,
+    SfMConfig,
+    SfMPipeline,
+    assess_reconstruction_quality,
+    reconstruct_scene,
+)
 from tpu3drec_torch.sfm.refinement import iterative_refinement  # noqa: E402
 
 __all__ = [
     "BAConfig",
     "BAProblem",
+    "Camera",
     "DenseReconstructionPipeline",
     "DescriptorKind",
     "Features",
     "Matches",
     "MethodResult",
+    "Reconstruction",
     "ScoreType",
+    "SfMConfig",
+    "SfMPipeline",
+    "assess_reconstruction_quality",
     "bundle_adjust",
     "detect_features",
     "find_essential",
@@ -73,6 +88,7 @@ __all__ = [
     "match_images",
     "prepare_image",
     "quick_match",
+    "reconstruct_scene",
     "recover_pose",
     "resolve_device",
     "run_dense_reconstruction",

@@ -149,8 +149,11 @@ def _residual(cam: torch.Tensor, X: torch.Tensor, uv: torch.Tensor
     u = Xc[..., 0] / zsafe * cam[..., 6] + cam[..., 8]
     v = Xc[..., 1] / zsafe * cam[..., 7] + cam[..., 9]
     r = torch.stack([u, v], -1) - uv
-    # behind the camera: the reference's 100 px sentinel (zero Jacobian)
-    return torch.where((z > 1e-6)[..., None], r, torch.sign(r) * 100.0)
+    # behind the camera: the reference's 100 px sentinel (zero Jacobian).
+    # A NaN residual stays NaN, as jnp.sign(nan) is (torch.sign gives 0),
+    # so a diverged LM step costs NaN and is rejected as in the reference
+    sentinel = torch.where(torch.isnan(r), r, torch.sign(r) * 100.0)
+    return torch.where((z > 1e-6)[..., None], r, sentinel)
 
 
 _jacobians = vmap(jacfwd(_residual, argnums=(0, 1)))
@@ -209,7 +212,7 @@ def bundle_adjust(prob: BAProblem,
     if axis_name is not None:
         raise NotImplementedError(
             "bundle_adjust(axis_name=...): the sharded point-block path "
-            "(parallel/ba.py) is ROADMAP Queue 1 #15, not ported yet")
+            "(parallel/ba.py) is ROADMAP Queue 1 #7, not ported yet")
     C = prob.cam_params.shape[0]
     P = prob.points.shape[0]
     dev = prob.cam_params.device

@@ -79,7 +79,7 @@ class DenseReconstructionPipeline:
         if mesh_method in _IMPLICIT:
             raise NotImplementedError(
                 f"mesh_method={mesh_method!r} needs ops/implicit.py, not "
-                f"ported yet (ROADMAP.md Queue 1 #8)")
+                f"ported yet (ROADMAP.md Queue 1 #5)")
         self.device = resolve_device(device)
         self.use_sharded_stereo = use_sharded_stereo
         self.num_disparities = num_disparities
@@ -155,7 +155,7 @@ class DenseReconstructionPipeline:
                 and torch.cuda.device_count() > 1 and len(others) > 1):
             raise NotImplementedError(
                 "sharded multi-card stereo is not ported yet (ROADMAP.md "
-                "Queue 1 #15); pass use_sharded_stereo=False for one card")
+                "Queue 1 #7); pass use_sharded_stereo=False for one card")
         t_start = time.perf_counter()
 
         def cam_of(n):
@@ -279,7 +279,7 @@ class DenseReconstructionPipeline:
         """Multi-reference mode (ICP-merged per-reference clouds)."""
         raise NotImplementedError(
             "run_multi_reference needs ICP merging and the implicit mesh "
-            "methods, not ported yet (ROADMAP.md Queue 1 #8)")
+            "methods, not ported yet (ROADMAP.md Queue 1 #5)")
 
 
 def run_dense_reconstruction(sparse_reconstruction: Dict,
