@@ -58,12 +58,31 @@ Phases, each of which raises (and so exits non-zero) on failure:
      give views/s; every view must register, the final mean reprojection
      stay under 1 px and every consecutive relative rotation within 1 deg
      of the truth; the per-phase split of the last run; one profiled run
-     of a 12-view cut (busy share, the sfm.* ranges' host and device
+     of a 6-view cut (busy share, the sfm.* ranges' host and device
      time, device time by kernel); tests/test_sfm_pipeline.py's 5-view
      scene on the card against the CPU plain path;
-  7. one JSON line with every kernel's launches, error, time, bound and
-     the plain and library yardsticks;
-  8. last line: {"ok": true, "device": {...}}.
+  7. the folder chain images -> matches -> SfM -> mesh:
+     `reconstruct_folder(folder, out, preset="balanced",
+     pair_mode="consecutive", pair_window=2, dense=True)`, the CLI `auto
+     --dense` command's defaults (SIFT + ORB at 2,000 features), on 24
+     views of 640x480 rendered by tests/test_end_to_end.py's splat
+     renderer (written as .npy). One cold run, with the launches of
+     `ori_desc`, `knn2` (on both its SIFT and its ORB input) and `sgm`
+     read around it (any zero fails), then one timed run: images/s,
+     matching pairs/s, each stage's seconds, the batched engine's device
+     calls (2 x methods x batches), each method's pairs and mean raw
+     matches, views registered, reprojection, rotations against the
+     renderer's, cloud points and mesh faces (the mesh reported, not
+     held: near-empty in both packages on this scene), against their bars; no
+     engine fallback, failed pair or method error. The first batch of 8
+     pairs on the card against the CPU plain path (the same pairs, raw
+     match counts within max(2, 2%), the same best method where the CPU's
+     scores differ by more than 0.02), the views a 4-view cut registers
+     on both, and `knn2` on one batch's ORB operands bit for bit against
+     its plain version, twice, timed beside its bound;
+  8. one JSON line with every kernel's launches (by path), error, time,
+     bound and the plain and library yardsticks; each phase's seconds;
+  9. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or without the package beside it, it fails before printing
 any result. It imports nothing of JAX.
@@ -73,6 +92,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import time
 
@@ -118,7 +138,7 @@ BA_CAMS, BA_PTS, BA_OBS_PER_PT = 50, 100_000, 5
 # bench/synthetic.py:make_sfm_scene, 640x480, pair_window 2, 0.4 px noise,
 # 0.85 visibility) and its default SfMConfig
 PIPE_VIEWS, PIPE_POINTS = 50, 15000
-PIPE_PROFILE_VIEWS = 12
+PIPE_PROFILE_VIEWS = 6
 PIPE_STEADY_RUNS = 2
 PIPE_RUN_LIMIT_S = 150      # one steady run instead of two above this
 PIPE_REPROJ_BAR = 1.0       # final mean reprojection (px); the noise is 0.4
@@ -128,6 +148,52 @@ PIPE_CPU_POINTS_RTOL = 0.10
 PIPE_CPU_REPROJ_PX = 0.1
 PIPE_CPU_ROT_DEG = 0.25
 PIPE_PHASES = ("rank_s", "mine_s", "pnp_s", "tri_s", "prog_s", "ext_s", "ba_s")
+
+# the folder chain: the CLI `auto --dense` command's defaults (preset
+# "balanced": SIFT + ORB at 2,000 features, flann 0.7 / bf 0.75, pairs in
+# batches of 8; consecutive pairs, window 2; SfMConfig(); dense at its
+# defaults) on tests/test_end_to_end.py's splat renderer, 24 views of
+# 640x480. Two settings differ from that test: FOLDER_F is the focal the
+# SfM assumes for a 640x480 image without EXIF (0.85 x 640,
+# sfm/intrinsics.py:fov_heuristic_ratio), so the recovered rotations can
+# be held against the renderer's (at the test's f = 700 both packages
+# read 1-3 deg on every pair), and 600 splats, which fill half of SIFT's
+# 2,000 slots on the median view (1,002). The bars rest on runs of both
+# packages on this folder (`tests/folder_chain_cpu.py`; PERF.md): the
+# port registered 23-24 views on the CPU, the reference 23, at 0.32-0.34
+# px. Weak views register a few degrees off in every run, and which ones
+# turns on float order: the port's CPU runs read 86.4% of the
+# neighbouring registered views within 1 deg at 1 thread and 95.7% at 2,
+# 4 and 8, the card 82.6-87.0% (19-20 of 23 pairs), the reference 77.3%.
+# So the rotation bars hold the median and a share of 78%, one pair of 23
+# under the lowest reading of the port on either device. The CPU's SfM on
+# the card's own matches must meet the same bars
+FOLDER_VIEWS = 24
+FOLDER_POINTS = 600
+FOLDER_F = 544.0
+FOLDER_PAIR_WINDOW = 2
+FOLDER_BATCH = 8
+FOLDER_CUT = 4
+FOLDER_REGISTERED_BAR = 0.9   # share of the views registered
+FOLDER_REPROJ_BAR = 1.5       # final mean reprojection (px)
+FOLDER_ROT_BAR_DEG = 1.0      # consecutive relative rotations vs the renderer:
+FOLDER_ROT_SHARE_BAR = 0.78   # the median, and this share of the pairs
+FOLDER_SCORE_GAP = 0.02       # best method compared where scores differ more
+# the dense stage stereo-matches every view against the middle one, across
+# up to 60 deg here, and its TSDF meshes the fused depth into a handful of
+# faces or none in both packages (port 28 on the CPU, 0-12 on the card;
+# reference 0), so the mesh is reported, not barred. The bars hold the
+# artifacts, the cloud and the fused depth's valid share, 12% under the
+# lowest reading (cloud: port 59,013 on the CPU, 51,728-54,381 on the
+# card, reference 51,164 points; valid share: port 0.780 and 0.686-0.719,
+# reference 0.682), and the card's dense stage is held to the CPU plain
+# path's on the same sparse views and images: phase 4's mask agreement
+# (99.9%) as a difference of valid shares, and the cloud within 1%
+FOLDER_CLOUD_BAR = 45_000
+FOLDER_VALID_BAR = 0.6
+FOLDER_DENSE_VALID_ABS = 0.001
+FOLDER_DENSE_CLOUD_RTOL = 0.01
+FOLDER_METRIC_BY_DEPTH = {128: "l2_int8", 256: "hamming_pm1"}
 
 # NVIDIA H100 SXM data-sheet peaks (dense)
 PEAK_BYTES_PER_S = 3.35e12
@@ -429,20 +495,17 @@ def fmt_ms(ms):
     return "not measured" if ms is None else f"{ms:.3f} ms"
 
 
-def check_ori_desc(torch, samples):
-    """ori_desc kernel vs plain on every octave, and on an all-valid
-    stress meta at the octave-0 and octave-4 shapes; every launch twice,
-    bit-identical; the device's slot list checked on the path's (mixed),
-    the stress (all valid) and an all-invalid meta. Returns the kernel
-    line fields (time and bound summed over the octaves of one call)."""
-    from tpu3drec_torch.ops import pallas_sample as ps
-    n_valid = n_bad = 0
-    max_err = 0.0
-    ms = plain_ms = 0.0
-    parts = {"ori_desc_kernel": 0.0, "list_slots_kernel": 0.0, "Memset": 0.0}
-    bytes_ = ops = 0.0
-    work = [0, 0, 0, 0]
-    box_px = []
+def ori_desc_octaves(torch, ps, samples, profile=True):
+    """Each octave's `ori_desc` launch held against the plain version:
+    two launches bit-identical, the oracle bars on every valid slot,
+    every slot written, the device's slot list and support boxes; each
+    octave timed (CUDA events; with `profile`, its kernels' device time
+    from one profiled call) and its work counted from its own data.
+    Returns the sums over the octaves."""
+    t = dict(n_valid=0, n_bad=0, max_err=0.0, ms=0.0, plain_ms=0.0,
+             bytes=0.0, ops=0.0, work=[0, 0, 0, 0], box_px=[],
+             parts={"ori_desc_kernel": 0.0, "list_slots_kernel": 0.0,
+                    "Memset": 0.0})
     for oc in samples:
         args = (oc.dxs, oc.dys, oc.meta, oc.hp, oc.fb)
         a_k, r_k = ps.ori_desc(*args)
@@ -453,32 +516,54 @@ def check_ori_desc(torch, samples):
             fail(f"ori_desc: two launches differ on octave {oc.octave}")
         bars = ori_desc_bars(torch, ps, a_k, r_k, a_p, r_p, oc.meta)
         nv = bars["slots"].numel()
-        n_valid += nv
-        n_bad += nv - int(bars["good"].sum())
-        max_err = max(max_err, bars["err"])
+        t["n_valid"] += nv
+        t["n_bad"] += nv - int(bars["good"].sum())
+        t["max_err"] = max(t["max_err"], bars["err"])
         box = kernel_boxes_and_list(torch, ps, *args)
         area = (box[:, 1] - box[:, 0]) * (box[:, 3] - box[:, 2])
-        box_px.append(int(area.max()) if nv else 0)
+        t["box_px"].append(int(area.max()) if nv else 0)
         ori_desc_misses(torch, ps, *args, a_k, bars, area > ps.CACHE_PX)
-        ms += cuda_ms(torch, lambda: ps.ori_desc(*args))
-        by_kernel = device_ms_by_kernel(torch, lambda: ps.ori_desc(*args))
+        t["ms"] += cuda_ms(torch, lambda: ps.ori_desc(*args))
+        parts = t["parts"]
+        by_kernel = (device_ms_by_kernel(torch, lambda: ps.ori_desc(*args))
+                     if profile else {})
         for name in parts:
             if parts[name] is not None:
                 got = ms_of(by_kernel, name)
                 parts[name] = None if got is None else parts[name] + got
-        plain_ms += cuda_ms(torch, lambda: ps.ori_desc_plain(*args), reps=1)
+        t["plain_ms"] += cuda_ms(torch, lambda: ps.ori_desc_plain(*args), reps=1)
         n_band, n_core, n_cell, n_px = ori_desc_work(torch, oc, a_p)
-        work = [a + b for a, b in zip(work, (n_band, n_core, n_cell, n_px))]
+        t["work"] = [a + b for a, b in
+                     zip(t["work"], (n_band, n_core, n_cell, n_px))]
         K = oc.meta.shape[0]
         # meta in, angle and raw out for every slot; each needed pixel of
         # both bf16 stacks read once
-        bytes_ += K * (16 + 4 + 128 * 4) + n_px * 2 * 2
+        t["bytes"] += K * (16 + 4 + 128 * 4) + n_px * 2 * 2
         # ~20 flops per band pixel in the mask (offsets, weight, magnitude,
         # atan2, two bins), ~45 per core pixel in the support (rotation,
         # weight, magnitude, atan2, 8 tents), 3 per (cell, output) for the
         # <= 4 spatial bins x 8 orientations a cell feeds, and ~700 per
         # slot for the two smoothings and the peak
-        ops += n_band * 20 + n_core * 45 + n_cell * 32 * 3 + nv * 700
+        t["ops"] += n_band * 20 + n_core * 45 + n_cell * 32 * 3 + nv * 700
+    t_bytes = t["bytes"] / PEAK_BYTES_PER_S * 1e3
+    t_ops = t["ops"] / PEAK_F32_OPS * 1e3
+    t["bound_ms"] = max(t_bytes, t_ops)
+    t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    t["frac_bad"] = t["n_bad"] / max(t["n_valid"], 1)
+    return t
+
+
+def check_ori_desc(torch, samples):
+    """ori_desc kernel vs plain on every octave, and on an all-valid
+    stress meta at the octave-0 and octave-4 shapes; every launch twice,
+    bit-identical; the device's slot list checked on the path's (mixed),
+    the stress (all valid) and an all-invalid meta. Returns the kernel
+    line fields (time and bound summed over the octaves of one call)."""
+    from tpu3drec_torch.ops import pallas_sample as ps
+    t = ori_desc_octaves(torch, ps, samples)
+    n_valid, n_bad, max_err = t["n_valid"], t["n_bad"], t["max_err"]
+    ms, plain_ms, parts, work = t["ms"], t["plain_ms"], t["parts"], t["work"]
+    bytes_, ops, box_px = t["bytes"], t["ops"], t["box_px"]
     frac_bad = n_bad / max(n_valid, 1)
     print(f"ori_desc vs plain: {n_valid} valid slots over {len(samples)} "
           f"octaves; {n_bad} outside angle<1e-3 rad & cos>0.9999 "
@@ -543,11 +628,8 @@ def check_ori_desc(torch, samples):
           f"{sum(empty):.4f} ms per pair-step call ("
           + " + ".join(f"{t:.4f}" for t in empty) + ")")
 
-    t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_OPS * 1e3
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                 library_ms=None)
 
 
@@ -1441,13 +1523,16 @@ def small_sfm_scene(n_views=5, n_pts=250, noise=0.4, seed=0):
 
 
 def consecutive_rotation_errors(recon, Rs, names):
-    """Angle (deg) between each consecutive registered pair's relative
-    rotation and the one of the rotations Rs (one per name)."""
+    """Angle (deg) between the relative rotation of each two registered
+    views that are neighbours in `names` once the unregistered ones are
+    left out, and the one of the rotations Rs (one per name). Pairs
+    across an unregistered view are kept: a block of views registered
+    off from the rest shows there."""
+    reg = [(n, R) for n, R in zip(names, Rs) if n in recon.cameras]
     out = []
-    for a in range(len(names) - 1):
-        if names[a] in recon.cameras and names[a + 1] in recon.cameras:
-            R_est = recon.cameras[names[a + 1]].R @ recon.cameras[names[a]].R.T
-            out.append(rot_err_deg(R_est, Rs[a + 1] @ Rs[a].T))
+    for (na, Ra), (nb, Rb) in zip(reg, reg[1:]):
+        R_est = recon.cameras[nb].R @ recon.cameras[na].R.T
+        out.append(rot_err_deg(R_est, Rb @ Ra.T))
     return np.asarray(out)
 
 
@@ -1574,11 +1659,453 @@ def run_pipeline(torch, card, dev):
     print(f"SfM pipeline phase on {card}: {time.perf_counter() - t_phase:.1f} s")
 
 
+def render_splat_views(folder, n_views, n_pts, seed=0, f=FOLDER_F):
+    """tests/test_end_to_end.py:render_splat_views at focal `f`, written
+    as .npy (no image codec needed): each 3D point a unique random 6x6
+    texture patch, scaled with 1/depth, painted far to near. Returns the
+    file names and each view's rotation."""
+    rng = np.random.default_rng(seed)
+    Wf, Hf = 640, 480
+    K = np.array([[f, 0, Wf / 2], [0, f, Hf / 2], [0, 0, 1]])
+    X = rng.uniform(-4, 4, (n_pts, 3)) + np.array([0, 0, 12.0])
+    base_size = rng.uniform(10.0, 18.0, n_pts)
+    patches = rng.uniform(0.15, 1.0, (n_pts, 6, 6)).astype(np.float32)
+    names, Rs = [], []
+    for i in range(n_views):
+        ang = (i - n_views / 2) * 0.09
+        R = np.array([[np.cos(ang), 0, np.sin(ang)],
+                      [0, 1, 0],
+                      [-np.sin(ang), 0, np.cos(ang)]])
+        c = np.array([6 * np.sin(ang), 0.1 * i, 12 - 6 * np.cos(ang)])
+        Xc = (R @ X.T + (-R @ c)[:, None]).T
+        z = Xc[:, 2]
+        uv = (K @ Xc.T).T
+        uv = uv[:, :2] / uv[:, 2:3]
+        img = np.zeros((Hf, Wf), np.float32)
+        for j in np.argsort(-z):            # far splats first
+            if z[j] < 1:
+                continue
+            s = int(round(base_size[j] * 12.0 / z[j]))
+            if s < 4:
+                continue
+            idx = (np.arange(s) * 6 // s)
+            patch = patches[j][np.ix_(idx, idx)]
+            x0 = int(round(uv[j, 0])) - s // 2
+            y0 = int(round(uv[j, 1])) - s // 2
+            xa, ya = max(0, x0), max(0, y0)
+            xb, yb = min(Wf, x0 + s), min(Hf, y0 + s)
+            if xa >= xb or ya >= yb:
+                continue
+            img[ya:yb, xa:xb] = patch[ya - y0:yb - y0, xa - x0:xb - x0]
+        name = f"view_{i:02d}.npy"
+        np.save(os.path.join(folder, name),
+                (np.clip(img, 0, 1) * 255).astype(np.uint8))
+        names.append(name)
+        Rs.append(R)
+    return names, Rs
+
+
+def folder_sfm_bars(recon, Rs, names, label):
+    """Phase 7's SfM bars on one reconstruction of the folder: views
+    registered, final mean reprojection, and the relative rotations of
+    neighbouring registered views against the renderer's (median, and
+    the share within FOLDER_ROT_BAR_DEG). Prints them."""
+    from tpu3drec_torch.sfm.quality import reprojection_errors
+    errs = reprojection_errors(recon)
+    mre = float(np.mean(errs)) if len(errs) else np.inf
+    rot = consecutive_rotation_errors(recon, Rs, names)
+    within = float(np.mean(rot < FOLDER_ROT_BAR_DEG)) if len(rot) else 0.0
+    med = float(np.median(rot)) if len(rot) else np.inf
+    print(f"folder chain SfM ({label}): {recon.num_cameras}/{len(names)} "
+          f"views registered (missing {sorted(set(names) - set(recon.cameras))}), "
+          f"{recon.num_points} points, final mean reprojection {mre:.4f} px; "
+          f"relative rotations of neighbouring registered views vs the "
+          f"renderer's: median {med:.4f} deg, {100 * within:.1f}% of "
+          f"{len(rot)} within {FOLDER_ROT_BAR_DEG} deg, errors (deg): "
+          f"{', '.join(f'{r:.3f}' for r in rot)}")
+    if recon.num_cameras < FOLDER_REGISTERED_BAR * len(names):
+        fail(f"folder chain ({label}): under "
+             f"{100 * FOLDER_REGISTERED_BAR:.0f}% of the views registered")
+    if not mre < FOLDER_REPROJ_BAR:
+        fail(f"folder chain ({label}): final mean reprojection must be "
+             f"under {FOLDER_REPROJ_BAR} px")
+    if not med < FOLDER_ROT_BAR_DEG or within < FOLDER_ROT_SHARE_BAR:
+        fail(f"folder chain ({label}): the median relative rotation and "
+             f"{100 * FOLDER_ROT_SHARE_BAR:.0f}% of them must be within "
+             f"{FOLDER_ROT_BAR_DEG} deg of the renderer's")
+
+
+def folder_chain(torch, folder, out, device, dense=True):
+    """One `reconstruct_folder` at the CLI auto command's defaults on
+    `device`; returns (result, seconds)."""
+    import tpu3drec_torch as tv
+    t0 = time.perf_counter()
+    res = tv.reconstruct_folder(folder, out, preset="balanced",
+                                pair_mode="consecutive",
+                                pair_window=FOLDER_PAIR_WINDOW, dense=dense,
+                                device=device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def folder_checks(res, label):
+    """Fail on any fallback, failed pair or method error of the matching
+    stage; return its summary."""
+    m = res["matching"]
+    st = m["stats"]
+    if st["engine_fallbacks"] or st["failed"] or st["method_errors"]:
+        fail(f"folder chain ({label}): {st['engine_fallbacks']} engine "
+             f"fallbacks, {st['failed']} failed pairs, {st['method_errors']} "
+             f"method results with an error")
+    return m
+
+
+def folder_fill(torch, folder, names, dev):
+    """Valid keypoints per view of each balanced-preset method, from one
+    batched detection on the card."""
+    from tpu3drec_torch.api import (
+        _detector_params, _get_detector_registry, prepare_image,
+    )
+    from tpu3drec_torch.core.config import create_config_from_preset
+    cfg = create_config_from_preset("balanced")
+    stack = torch.stack([prepare_image(np.load(os.path.join(folder, n)), dev)
+                         for n in names])
+    out = {}
+    for method in cfg["methods"]:
+        feats = _get_detector_registry()[method](
+            stack, **_detector_params(method, cfg, None))
+        out[method] = feats.mask.sum(1).cpu().numpy()
+    return out, cfg["max_features"]
+
+
+def batch_results(torch, images, pairs, device):
+    """The batched engine's MatchingResults for `pairs` on `device`, with
+    the chain's config (balanced, no homography filtering)."""
+    import tpu3drec_torch as tv
+    pipe = tv.create_pipeline("balanced", {
+        "filtering": {"use_adaptive_filtering": False}}, device=device)
+    return pipe._match_pairs_batched(images, pairs)
+
+
+def folder_knn2(torch, pm, ops, label):
+    """`knn2` on operands the folder chain handed it: bit for bit against
+    the plain version (twice), timed beside the plain version, both
+    yardsticks and the bound. Prints one line; returns the fields."""
+    a, b, n2, m2 = ops
+    err = knn2_equal(torch, pm, a, b, n2, m2, label)
+    ms = cuda_ms(torch, lambda: pm.knn2_raw(a, b, n2, m2))
+    plain = cuda_ms(torch, lambda: pm.knn2_plain(a, b, n2, m2), reps=2)
+    f32, (bf16, form) = knn2_library(torch, a, b, n2, m2)
+    lib_ms, lib_bf16_ms = cuda_ms(torch, f32, reps=2), cuda_ms(torch, bf16, reps=2)
+    bound, by = knn2_bound(a, b, m2)
+    print(f"knn2 at {label} {tuple(a.shape)} x {tuple(b.shape)} "
+          f"({int(m2.sum())} of {m2.numel()} columns valid): bit-equal to "
+          f"the plain version, twice; {ms:.4f} ms per call (CUDA events), "
+          f"plain {plain:.3f} ms, bound {bound:.4f} ms ({by}); f32 matmul + "
+          f"topk {lib_ms:.3f} ms; {form} {lib_bf16_ms:.3f} ms")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                max_abs_err=err, library_ms=lib_ms,
+                library_bf16_ms=lib_bf16_ms)
+
+
+def run_folder(torch, card, dev):
+    """Phase 7: the folder chain images -> matches -> SfM -> mesh at the
+    CLI auto command's defaults, on 24 rendered views of 640x480; its
+    kernels' launches, bars, the card against the CPU plain path (the
+    first batch's matching, the SfM stage on the card's own matches, the
+    dense stage on the card's own registered views, a 4-view cut), and
+    `ori_desc` and `knn2` (both metrics) on the first batch's operands
+    against their plain versions."""
+    import copy
+    import tempfile
+    from types import SimpleNamespace
+    import tpu3drec_torch.pipelines.dense as pdense
+    from tpu3drec_torch.io.images import FolderImageSource
+    from tpu3drec_torch.ops import match as mt
+    from tpu3drec_torch.ops import pallas_match as pm
+    from tpu3drec_torch.ops import pallas_sample as ps
+    from tpu3drec_torch.ops import pallas_sgm as psg
+    from tpu3drec_torch.ops.sift import N_LAYERS
+    from tpu3drec_torch.sfm import SfMPipeline
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_folder_") as tmp:
+        folder = os.path.join(tmp, "imgs")
+        os.mkdir(folder)
+        names, Rs = render_splat_views(folder, FOLDER_VIEWS, FOLDER_POINTS)
+        fill, cap = folder_fill(torch, folder, names, dev)
+        print(f"folder: {FOLDER_VIEWS} views of 640x480, {FOLDER_POINTS} "
+              f"splats, f = {FOLDER_F}; keypoints per view of {cap} slots: "
+              + "; ".join(f"{m} median {int(np.median(v))} ({100 * np.median(v) / cap:.1f}%), "
+                          f"min {int(v.min())}, max {int(v.max())}"
+                          for m, v in fill.items()))
+        if np.median(fill["SIFT"]) < cap / 2:
+            fail("folder: SIFT fills under half of its slots on the median view")
+
+        # the kernels' inputs as the path hands them: spies on the
+        # matcher's `knn2` entry and the SIFT detector's `ori_desc` entry
+        # count each knn2 call's depth and keep the first batch's operands
+        # of each (they launch nothing themselves)
+        calls, knn2_ops, octaves, first = {}, {}, [], [True]
+        knn2_entry, windows_entry = mt.knn2_raw, ps.ori_desc_windows
+
+        def knn2_spy(a, b, bnorm, mask2):
+            d = a.shape[-1]
+            calls[d] = calls.get(d, 0) + 1
+            if d not in knn2_ops:
+                knn2_ops[d] = tuple(t.clone() for t in (a, b, bnorm, mask2))
+            return knn2_entry(a, b, bnorm, mask2)
+
+        def windows_spy(dxs, dys, meta, hp, fb):
+            # the first detection call's octaves: until octave 0's shape
+            # comes again
+            if first[0] and octaves and dxs.shape[1:] == octaves[0].dxs.shape[1:]:
+                first[0] = False
+            if first[0]:
+                octaves.append(SimpleNamespace(
+                    octave=len(octaves), dxs=dxs.clone(), dys=dys.clone(),
+                    meta=meta.clone(), hp=hp, fb=fb))
+            return windows_entry(dxs, dys, meta, hp, fb)
+
+        mt.knn2_raw, ps.ori_desc_windows = knn2_spy, windows_spy
+        try:
+            ps.ori_desc.launches = pm.knn2_raw.launches = 0
+            psg.sgm_aggregate_batch.launches = 0
+            res, cold = folder_chain(torch, folder, os.path.join(tmp, "cold"), dev)
+            launches = {"ori_desc": ps.ori_desc.launches,
+                        "knn2": pm.knn2_raw.launches,
+                        "sgm": psg.sgm_aggregate_batch.launches}
+        finally:
+            mt.knn2_raw, ps.ori_desc_windows = knn2_entry, windows_entry
+        by_metric = {FOLDER_METRIC_BY_DEPTH.get(d, d): n
+                     for d, n in sorted(calls.items())}
+        print(f"launches in the folder chain's cold run: {launches}; knn2 "
+              f"calls by metric: {by_metric}")
+        for name, n in launches.items():
+            if n == 0:
+                fail(f"the folder chain never launched the {name} kernel")
+        if set(by_metric) != {"l2_int8", "hamming_pm1"}:
+            fail("the folder chain did not run knn2 on both the SIFT and "
+                 "the ORB input")
+        folder_checks(res, "cold")
+
+        # the steady run; spies keep what its SfM and dense stages were
+        # handed, for the CPU plain path below
+        handed = {}
+        sfm_entry, dense_entry = (SfMPipeline.reconstruct,
+                                  pdense.run_dense_reconstruction)
+
+        def sfm_spy(self, matches_data, image_info, *a, **k):
+            handed["sfm"] = copy.deepcopy((matches_data, image_info))
+            return sfm_entry(self, matches_data, image_info, *a, **k)
+
+        def dense_spy(sparse, images, *a, **k):
+            handed["dense"] = copy.deepcopy((sparse, images))
+            return dense_entry(sparse, images, *a, **k)
+
+        SfMPipeline.reconstruct = sfm_spy
+        pdense.run_dense_reconstruction = dense_spy
+        try:
+            res, steady = folder_chain(torch, folder,
+                                       os.path.join(tmp, "steady"), dev)
+        finally:
+            SfMPipeline.reconstruct = sfm_entry
+            pdense.run_dense_reconstruction = dense_entry
+        m = folder_checks(res, "steady")
+        recon = res["reconstruction"]
+        n_pairs = m["stats"]["total_pairs"]
+        n_methods = len(m["config"]["methods"])
+        n_batches = -(-n_pairs // FOLDER_BATCH)
+        t = res["timings_s"]
+        dense = res.get("dense") or {}
+        mesh = dense.get("mesh", {})
+        cloud = dense.get("point_cloud", {})
+        valid = dense.get("depth", {}).get("valid_fraction", 0.0)
+        print(f"folder chain: {FOLDER_VIEWS / steady:.4f} images/s end to end "
+              f"({steady:.2f} s steady; cold {cold:.2f} s, "
+              f"{FOLDER_VIEWS / cold:.4f} images/s); matching "
+              f"{n_pairs / t['matching']:.3f} pairs/s; seconds: matching "
+              f"{t['matching']:.3f}, SfM {t['sfm']:.3f}, dense "
+              f"{t.get('dense', float('nan')):.3f}; on {card}")
+        print(f"folder chain matching: {n_pairs} pairs in {n_batches} batches, "
+              f"dispatch_count {m['dispatch_count']}; per method: "
+              + "; ".join(f"{k} {v['pairs']} pairs, mean raw matches "
+                          f"{v['mean_raw_matches']:.1f}, mean quality "
+                          f"{v['mean_quality']:.4f}"
+                          for k, v in m["methods"].items()))
+        print(f"folder chain dense: {cloud.get('num_points', 0)} cloud "
+              f"points, fused depth valid on {valid:.4f} of the reference "
+              f"view, {mesh.get('num_faces', 0)} mesh faces "
+              f"({mesh.get('method')}, reference view "
+              f"{dense.get('reference_view')})")
+        if m["dispatch_count"] != 2 * n_methods * n_batches:
+            fail(f"folder chain: {m['dispatch_count']} engine calls, not "
+                 f"2 x {n_methods} methods x {n_batches} batches")
+        folder_sfm_bars(recon, Rs, names, "the card")
+        dense_dir = os.path.join(tmp, "steady", "dense")
+        if cloud.get("num_points", 0) < FOLDER_CLOUD_BAR \
+                or not valid > FOLDER_VALID_BAR or not all(
+                os.path.exists(os.path.join(dense_dir, f)) for f in
+                ("fused_depth.npy", "point_cloud.ply", "mesh.obj")):
+            fail(f"folder chain: dense artifacts missing, fewer than "
+                 f"{FOLDER_CLOUD_BAR} cloud points or the fused depth valid "
+                 f"on no more than {FOLDER_VALID_BAR} of the reference view")
+
+        # the SfM stage on the CPU plain path, on the card's own matches:
+        # the card's matches must carry the CPU's SfM over the same bars,
+        # and the two must agree on the median relative rotation of the
+        # neighbouring views both registered. Which weak views register,
+        # and how far off, turns on float order on both devices (the CPU's
+        # own runs differ with its thread count, the card's with its
+        # atomics), so the views and the worst pair are compared, not held
+        # equal
+        md, info = handed.pop("sfm")
+        _, ra, _ = sfm_pipeline_run(torch, md, info, dev)
+        rot_a = consecutive_rotation_errors(ra, Rs, names)
+        print(f"folder chain SfM, the card again on the same matches: "
+              f"{ra.num_cameras} views (missing "
+              f"{sorted(set(names) - set(ra.cameras))}), {ra.num_points} "
+              f"points, {100 * float(np.mean(rot_a < FOLDER_ROT_BAR_DEG)):.1f}% "
+              f"within {FOLDER_ROT_BAR_DEG} deg (the steady run: "
+              f"{recon.num_cameras} views, {recon.num_points} points; BA's "
+              f"segment sums are float atomics on the card)")
+        del ra
+        t0 = time.perf_counter()
+        _, rh, _ = sfm_pipeline_run(torch, md, info, cpu)
+        sfm_cpu_s = time.perf_counter() - t0
+        folder_sfm_bars(rh, Rs, names, "the CPU plain path on the card's "
+                        "matches")
+        common = [n for n in names if n in recon.cameras and n in rh.cameras]
+        drot = consecutive_rotation_errors(
+            recon, [rh.cameras[n].R for n in common], common)
+        print(f"folder chain SfM, card vs CPU plain path on the card's "
+              f"matches: views only on the card "
+              f"{sorted(set(recon.cameras) - set(rh.cameras))}, only on the "
+              f"CPU {sorted(set(rh.cameras) - set(recon.cameras))}; points "
+              f"{recon.num_points} vs {rh.num_points}; relative rotations of "
+              f"neighbouring common views within "
+              f"{drot.max() if len(drot) else np.inf:.4f} deg of each other, "
+              f"median {np.median(drot) if len(drot) else np.inf:.4f} "
+              f"({sfm_cpu_s:.1f} s on the CPU)")
+        if not len(drot) or not np.median(drot) < PIPE_CPU_ROT_DEG:
+            fail(f"folder chain: the card's SfM and the CPU plain path's on "
+                 f"the same matches differ by {PIPE_CPU_ROT_DEG} deg or more "
+                 f"in the median relative rotation of neighbouring views")
+        del rh
+
+        # the dense stage on the CPU plain path, on the card's own
+        # registered views and images
+        t0 = time.perf_counter()
+        dh = pdense.run_dense_reconstruction(*handed.pop("dense"), device=cpu)
+        dense_cpu_s = time.perf_counter() - t0
+        vh = dh["depth"]["valid_fraction"]
+        ch = dh["point_cloud"]["num_points"]
+        print(f"folder chain dense, card vs CPU plain path on the same "
+              f"{dh['num_views']} views (reference {dh['reference_view']}): "
+              f"fused depth valid on {valid:.4f} vs {vh:.4f} of the reference "
+              f"view (bar: within {FOLDER_DENSE_VALID_ABS}), cloud "
+              f"{cloud.get('num_points', 0)} vs {ch} points (bar: within "
+              f"{100 * FOLDER_DENSE_CLOUD_RTOL:.0f}%), mesh "
+              f"{mesh.get('num_faces', 0)} vs {dh['mesh']['num_faces']} faces "
+              f"({dense_cpu_s:.1f} s on the CPU)")
+        if dh["reference_view"] != dense.get("reference_view") \
+                or not abs(valid - vh) <= FOLDER_DENSE_VALID_ABS \
+                or not abs(cloud.get("num_points", 0) - ch) \
+                <= FOLDER_DENSE_CLOUD_RTOL * ch:
+            fail("folder chain: the card's dense stage disagrees with the "
+                 "CPU plain path on the same views")
+        del res, recon, dh
+
+        # the card against the CPU plain path: the first batch of pairs
+        t0 = time.perf_counter()
+        src = FolderImageSource(folder)
+        pairs = [(names[i], names[i + k]) for i in range(FOLDER_VIEWS)
+                 for k in range(1, FOLDER_PAIR_WINDOW + 1)
+                 if i + k < FOLDER_VIEWS][:FOLDER_BATCH]
+        images = src.load_many(sorted({n for p in pairs for n in p}))
+        rc = batch_results(torch, images, pairs, dev)
+        rh = batch_results(torch, images, pairs, cpu)
+        worst, same_best, compared = 0.0, 0, 0
+        if sorted(rc) != sorted(rh):
+            fail("folder chain: the card and the CPU matched other pairs")
+        for pair in rh:
+            for meth, r in rh[pair].items():
+                nc, nh = rc[pair][meth].num_raw_matches, r.num_raw_matches
+                if rc[pair][meth].error or r.error:
+                    fail(f"folder chain: method error {rc[pair][meth].error or r.error}")
+                worst = max(worst, abs(nc - nh) / max(2, 0.02 * nh))
+            scores = sorted(r.get_quality_score() for r in rh[pair].values())
+            if scores[-1] - scores[0] > FOLDER_SCORE_GAP:
+                compared += 1
+                same_best += (rc[pair].get_best_method_name()
+                              == rh[pair].get_best_method_name())
+        print(f"folder chain, first batch of {len(pairs)} pairs, card vs CPU "
+              f"plain path: same pairs; raw match counts within "
+              f"{worst:.3f} of max(2, 2%); same best method on {same_best} "
+              f"of {compared} pairs whose CPU scores differ by more than "
+              f"{FOLDER_SCORE_GAP} ({time.perf_counter() - t0:.1f} s)")
+        if worst > 1.0 or same_best != compared:
+            fail("folder chain: the card's matching disagrees with the CPU "
+                 "plain path")
+
+        # ... and the views a 4-view cut registers
+        t0 = time.perf_counter()
+        cut = os.path.join(tmp, "cut")
+        os.mkdir(cut)
+        for n in names[:FOLDER_CUT]:
+            shutil.copyfile(os.path.join(folder, n), os.path.join(cut, n))
+        (res_c, _), (res_h, _) = (
+            folder_chain(torch, cut, os.path.join(tmp, f"cut_{d.type}"), d,
+                         dense=False) for d in (dev, cpu))
+        vc = sorted(res_c["reconstruction"].cameras)
+        vh = sorted(res_h["reconstruction"].cameras)
+        print(f"folder chain, {FOLDER_CUT}-view cut, card vs CPU plain path: "
+              f"views {vc} vs {vh}; points {res_c['reconstruction'].num_points} "
+              f"vs {res_h['reconstruction'].num_points} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        if vc != vh:
+            fail("folder chain: the card and the CPU registered other views")
+
+    # ori_desc and knn2 on the first batch's operands, as the path handed
+    # them, against their plain versions with phase 2's bars
+    L, h, w = octaves[0].dxs.shape
+    od = ori_desc_octaves(torch, ps, octaves, profile=False)
+    print(f"ori_desc vs plain at the folder chain's first batch ("
+          f"{L // (N_LAYERS + 3)} images of {w}x{h}, {len(octaves)} octaves, "
+          f"{sum(o.meta.shape[0] for o in octaves)} slots): {od['n_valid']} "
+          f"valid; {od['n_bad']} outside angle<1e-3 rad & cos>0.9999 "
+          f"({100 * od['frac_bad']:.3f}%, bar <= 0.5%); max |desc err| on "
+          f"the rest {od['max_err']:.3e}; two launches bit-identical; every "
+          f"slot written; the device's slot list and support boxes right; "
+          f"{od['ms']:.4f} ms per detection call (CUDA events), plain "
+          f"{od['plain_ms']:.3f} ms, bound {od['bound_ms']:.4f} ms "
+          f"({od['bound_by']})")
+    if od["n_valid"] == 0 or od["frac_bad"] > 0.005:
+        fail("ori_desc disagrees with its plain version at the folder's "
+             "first batch")
+    sift = folder_knn2(torch, pm, knn2_ops[128],
+                       "the folder's first batch of SIFT operands")
+    orb = folder_knn2(torch, pm, knn2_ops[256],
+                      "the folder's first batch of ORB operands")
+    print(f"folder chain phase on {card}: {time.perf_counter() - t_phase:.1f} s")
+    return dict(
+        launches=launches,
+        ori_desc={"folder_ms": od["ms"], "folder_plain_ms": od["plain_ms"],
+                  "folder_bound_ms": od["bound_ms"],
+                  "folder_bound_by": od["bound_by"],
+                  "folder_max_abs_err": od["max_err"]},
+        knn2={**{f"folder_{k}": v for k, v in sift.items()},
+              **{f"orb_{k}": v for k, v in orb.items()}})
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "tpu3drec_torch", "csrc")):
         fail("the tpu3drec_torch package is not beside chip_smoke.py")
     t_main = time.perf_counter()
+    phase_s = {}
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -1689,17 +2216,32 @@ def main():
     if dm > tol or di > tol or ce > 0.5:
         fail("the card's pair step disagrees with the CPU plain path")
 
+    phase_s["1-3 build, kernels, pair step"] = time.perf_counter() - t_main
+
     # ---- 4. the dense stage
+    t0 = time.perf_counter()
     fields["sgm"] = run_dense(torch, kind, dev)
     launches["sgm"] = fields["sgm"]["launches"]
+    phase_s["4 dense"] = time.perf_counter() - t0
 
     # ---- 5. SfM geometry and bundle adjustment
+    t0 = time.perf_counter()
     run_sfm(torch, card, dev)
+    phase_s["5 sfm ops"] = time.perf_counter() - t0
 
     # ---- 6. the incremental SfM pipeline
+    t0 = time.perf_counter()
     run_pipeline(torch, card, dev)
+    phase_s["6 sfm pipeline"] = time.perf_counter() - t0
 
-    # ---- 7. the kernels line
+    # ---- 7. the folder chain
+    t0 = time.perf_counter()
+    folder = run_folder(torch, card, dev)
+    phase_s["7 folder chain"] = time.perf_counter() - t0
+    fields["knn2"].update(folder["knn2"])
+    fields["ori_desc"].update(folder["ori_desc"])
+
+    # ---- 8. the kernels line
     sources = {
         "ori_desc": ("tpu3drec_torch/csrc/ori_desc.cu",
                      "tpu3drec/ops/pallas_sample.py:541"),
@@ -1717,8 +2259,15 @@ def main():
                         "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
                         "bound_by": f["bound_by"],
                         "library_ms": f["library_ms"],
+                        "launches_by_path": {
+                            "pair_step" if name != "sgm" else "dense":
+                                launches[name],
+                            "folder": folder["launches"][name]},
                         **{k: v for k, v in f.items() if k.startswith(
-                            ("full_", "library_bf16", "kernel_ms"))}})
+                            ("full_", "library_bf16", "kernel_ms", "orb_",
+                             "folder_"))}})
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                        for k, v in phase_s.items()))
     print(f"chip_smoke wall time: {time.perf_counter() - t_main:.1f} s "
           f"(builds included)")
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,10 @@
 """tpu3drec_torch — the PyTorch/CUDA port of tpu3drec for NVIDIA Hopper.
 
 A second package beside the JAX reference `tpu3drec`: the same
-mask-padded data model, the SIFT pair step (detect -> int8 2-NN ratio
-match -> homography RANSAC), the SfM geometry and bundle adjustment
+mask-padded data model and config presets, the SIFT pair step (detect ->
+int8 2-NN ratio match -> homography RANSAC), ORB, the folder matching
+pipeline (`create_pipeline`, `quick_process_folder`) and the folder chain
+from images to a mesh (`reconstruct_folder`), the SfM geometry and bundle adjustment
 (5-point / 8-point essential RANSAC -> pose -> triangulation -> PnP ->
 Schur LM, `iterative_refinement`), the incremental SfM pipeline
 (`SfMPipeline`, `reconstruct_scene`: matches -> `Reconstruction` and its
@@ -34,18 +36,29 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
 from tpu3drec_torch.core.device import resolve_device  # noqa: E402
+from tpu3drec_torch.core.config import (  # noqa: E402
+    DEFAULT_CONFIG,
+    PRESET_CONFIGS,
+    create_config_from_preset,
+    merge_configs,
+    validate_config,
+)
 from tpu3drec_torch.core.types import (  # noqa: E402
     DescriptorKind,
     Features,
     Matches,
+    MatchingResult,
     MethodResult,
     ScoreType,
 )
 from tpu3drec_torch.api import (  # noqa: E402
+    create_pipeline,
     detect_features,
     match_images,
     prepare_image,
     quick_match,
+    quick_process_folder,
+    reconstruct_folder,
 )
 from tpu3drec_torch.ops.ba import BAConfig, BAProblem, bundle_adjust  # noqa: E402
 from tpu3drec_torch.ops.epipolar import find_essential, recover_pose  # noqa: E402
@@ -55,6 +68,9 @@ from tpu3drec_torch.pair_step import make_pair_fn  # noqa: E402
 from tpu3drec_torch.pipelines.dense import (  # noqa: E402
     DenseReconstructionPipeline,
     run_dense_reconstruction,
+)
+from tpu3drec_torch.pipelines.matching import (  # noqa: E402
+    FeatureProcessingPipeline,
 )
 from tpu3drec_torch.sfm import (  # noqa: E402
     Camera,
@@ -70,28 +86,38 @@ __all__ = [
     "BAConfig",
     "BAProblem",
     "Camera",
+    "DEFAULT_CONFIG",
     "DenseReconstructionPipeline",
     "DescriptorKind",
+    "FeatureProcessingPipeline",
     "Features",
     "Matches",
+    "MatchingResult",
     "MethodResult",
+    "PRESET_CONFIGS",
     "Reconstruction",
     "ScoreType",
     "SfMConfig",
     "SfMPipeline",
     "assess_reconstruction_quality",
     "bundle_adjust",
+    "create_config_from_preset",
+    "create_pipeline",
     "detect_features",
     "find_essential",
     "iterative_refinement",
     "make_pair_fn",
     "match_images",
+    "merge_configs",
     "prepare_image",
     "quick_match",
+    "quick_process_folder",
+    "reconstruct_folder",
     "reconstruct_scene",
     "recover_pose",
     "resolve_device",
     "run_dense_reconstruction",
     "solve_pnp_ransac",
     "triangulate_two_view",
+    "validate_config",
 ]

@@ -1,13 +1,23 @@
-"""Public API for the ported methods: `prepare_image`, `detect_features`,
-`match_images`, `quick_match` (SIFT only in this slice).
+"""Public API: detection, pair matching, folder matching and the folder
+chain from images to a sparse and a dense reconstruction.
 
-Port of the matching half of `tpu3drec/api.py`. These entry points take
-host images and a `device` (None means CUDA; see `core.device`).
+Port of `tpu3drec/api.py`: `prepare_image`, `detect_features`,
+`match_images`, `quick_match`, `create_pipeline`, `quick_process_folder`
+and `reconstruct_folder`. These entry points take host images or a
+folder and a `device` (None means CUDA; see `core.device`).
+
+The detector registry holds the ported detectors, SIFT and ORB. A known
+detector the port lacks is never dropped silently: asking for Harris,
+GoodFeatures (alias GFTT), AKAZE or BRISK raises `NotImplementedError`
+naming ROADMAP Queue 1 #4. The deep detectors follow the reference's rule:
+without converted weights on disk they are unavailable (not registered),
+and with weights present they raise `NotImplementedError` naming #6.
 """
 
 from __future__ import annotations
 
 import time
+from pathlib import Path
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -23,24 +33,56 @@ from tpu3drec_torch.ops.geometry import (
     find_homography, reprojection_error_homography,
 )
 from tpu3drec_torch.ops.match import auto_select_matcher, match_features
+from tpu3drec_torch.ops.orb import detect_orb_features
 from tpu3drec_torch.ops.sift import detect_sift_features
+from tpu3drec_torch.pipelines.matching import create_pipeline
+
+# name -> detect fn ((H, W) or (B, H, W) float32 tensor, **params) -> Features
+_DETECTORS = {"SIFT": detect_sift_features, "ORB": detect_orb_features}
+_ALIASES = {"GFTT": "GoodFeatures"}
+_NOT_PORTED = ("Harris", "GoodFeatures", "AKAZE", "BRISK")
+# deep detector -> its weights file stem
+_DEEP = {"SuperPoint": "superpoint", "DISK": "disk", "ALIKED": "aliked"}
 
 
-# name -> detect fn (image (H, W) float32 tensor, **params) -> Features
-_DETECTORS = {"SIFT": detect_sift_features}
+def _get_detector_registry() -> Dict[str, Any]:
+    """Name -> detect fn of the detectors the port runs."""
+    return dict(_DETECTORS)
+
+
+def check_detector(method: str) -> None:
+    """Raise `NotImplementedError` for a known detector that the port does
+    not run yet; return for any other name."""
+    name = _ALIASES.get(method, method)
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"tpu3drec_torch: the {method} detector is not ported yet "
+            f"(ROADMAP Queue 1 #4)")
+    if name in _DEEP:
+        from tpu3drec_torch.models import weights_available
+        if weights_available(_DEEP[name]):
+            raise NotImplementedError(
+                f"tpu3drec_torch: converted {method} weights are on disk, "
+                f"but the deep detectors are not ported yet (ROADMAP "
+                f"Queue 1 #6)")
+
+
+def unit_float(image) -> np.ndarray:
+    """Any uint8/float image -> float32 numpy in [0, 1] (0-255 floats are
+    recognised by a maximum above 2)."""
+    arr = np.asarray(image)
+    if arr.dtype == np.uint8:
+        return arr.astype(np.float32) / 255.0
+    arr = arr.astype(np.float32)
+    if arr.max() > 2.0:  # heuristically 0-255 floats
+        arr = arr / 255.0
+    return arr
 
 
 def prepare_image(image, device=None) -> torch.Tensor:
     """Any uint8/float, gray/RGB image -> (H, W) float32 tensor in [0, 1]."""
     dev = resolve_device(device)
-    arr = np.asarray(image)
-    if arr.dtype == np.uint8:
-        arr = arr.astype(np.float32) / 255.0
-    else:
-        arr = arr.astype(np.float32)
-        if arr.max() > 2.0:  # heuristically 0-255 floats
-            arr = arr / 255.0
-    return imops.rgb_to_gray(torch.from_numpy(arr).to(dev))
+    return imops.rgb_to_gray(torch.from_numpy(unit_float(image)).to(dev))
 
 
 def _detector_params(method: str, config: Optional[Dict[str, Any]],
@@ -60,6 +102,7 @@ def detect_features(image, method: str = "SIFT",
                     config: Optional[Dict[str, Any]] = None,
                     device=None, **params) -> Features:
     """Detect keypoints + descriptors with one method."""
+    check_detector(method)
     if method not in _DETECTORS:
         raise ValueError(f"Unknown or unavailable detector {method!r}; "
                          f"have {sorted(_DETECTORS)}")
@@ -117,3 +160,65 @@ def match_images(image1, image2, method: str = "SIFT",
 def quick_match(image1, image2, method: str = "SIFT", **kw) -> MethodResult:
     """One-call pair matching."""
     return match_images(image1, image2, method=method, **kw)
+
+
+def quick_process_folder(folder, output_dir, preset: str = "balanced",
+                         device=None, **kw):
+    """One-call folder matching: `create_pipeline(preset).match_folder`."""
+    return create_pipeline(preset, device=device).match_folder(
+        folder, output_dir, **kw)
+
+
+def reconstruct_folder(folder, output_dir, preset: str = "balanced",
+                       dense: bool = False,
+                       sfm_config=None,
+                       chosen_images: Optional[list] = None,
+                       device=None,
+                       **match_kw) -> Dict[str, Any]:
+    """End-to-end chain on `device`: folder matching -> incremental SfM
+    [-> dense], each stage's output handed to the next in memory (the
+    batch pickles and the SfM exports are written as well).
+
+    Homography filtering is off for the chain: it prunes valid
+    correspondences of 3-D scenes, and SfM runs its own essential-matrix
+    RANSAC. `timings_s` holds each stage's host seconds."""
+    from tpu3drec_torch.io.images import FolderImageSource
+    from tpu3drec_torch.pipelines.dense import run_dense_reconstruction
+    from tpu3drec_torch.sfm import SfMPipeline
+
+    dev = resolve_device(device)
+    out = Path(output_dir)
+    timings: Dict[str, float] = {}
+    t0 = time.perf_counter()
+    pipe = create_pipeline(preset, {
+        "filtering": {"use_adaptive_filtering": False}}, device=dev)
+    summary = pipe.match_folder(folder, out / "matching",
+                                collect_results=True, **match_kw)
+    matches_data = summary.pop("matches_data")
+    image_info = summary.pop("image_info")
+    timings["matching"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    sfm = SfMPipeline(sfm_config, device=dev)
+    recon = sfm.reconstruct(matches_data, image_info,
+                            output_dir=out / "sfm",
+                            chosen_images=chosen_images,
+                            checkpoint_dir=out / "sfm")
+    timings["sfm"] = time.perf_counter() - t0
+    result: Dict[str, Any] = {
+        "matching": summary,
+        "reconstruction": recon,
+        "sfm_stats": recon.stats(),
+        "timings_s": timings,
+    }
+    if dense and recon.num_cameras >= 2:
+        t0 = time.perf_counter()
+        src = FolderImageSource(folder)
+        names = set(recon.cameras)
+        images = src.loader.load_batch(
+            [m for m in src.get_metadata_list() if m.name in names])
+        result["dense"] = run_dense_reconstruction(
+            recon.to_legacy_format(), images, output_dir=out / "dense",
+            device=dev)
+        timings["dense"] = time.perf_counter() - t0
+    return result

@@ -1,1 +1,2 @@
-"""Core data model, configuration defaults and device policy."""
+"""Core data model, configuration presets, the matcher registry,
+multi-method match merging and device policy."""

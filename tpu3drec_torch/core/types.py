@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Dict, Optional
+import functools
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -67,6 +68,38 @@ class Features:
 
     def replace(self, **kw) -> "Features":
         return dataclasses.replace(self, **kw)
+
+    @classmethod
+    def empty(cls, capacity: int, desc_dim: int, method: str = "unknown",
+              desc_kind: str = DescriptorKind.FLOAT.value,
+              image_shape: tuple = (), device=None) -> "Features":
+        dev = resolve_device(device)
+        z = functools.partial(torch.zeros, dtype=torch.float32, device=dev)
+        return cls(xy=z(capacity, 2), response=z(capacity),
+                   scale=z(capacity), angle=z(capacity),
+                   desc=z(capacity, desc_dim),
+                   mask=torch.zeros(capacity, dtype=torch.bool, device=dev),
+                   method=method, desc_kind=desc_kind,
+                   image_shape=image_shape)
+
+    def to(self, device) -> "Features":
+        """The same Features with every tensor on `device`."""
+        return self.replace(xy=self.xy.to(device),
+                            response=self.response.to(device),
+                            scale=self.scale.to(device),
+                            angle=self.angle.to(device),
+                            desc=self.desc.to(device),
+                            mask=self.mask.to(device))
+
+    def top_k(self, k: int) -> "Features":
+        """Keep the k strongest valid keypoints, strongest first (ties to
+        the lower index, as the reference's stable argsort)."""
+        score = torch.where(self.mask, self.response,
+                            torch.full_like(self.response, -float("inf")))
+        idx = torch.argsort(-score, stable=True)[:k]
+        return self.replace(xy=self.xy[idx], response=self.response[idx],
+                            scale=self.scale[idx], angle=self.angle[idx],
+                            desc=self.desc[idx], mask=self.mask[idx])
 
     def to_numpy(self) -> Dict[str, np.ndarray]:
         """Dense (unpadded) numpy view, for IO / serialization."""
@@ -149,6 +182,35 @@ class Matches:
     def replace(self, **kw) -> "Matches":
         return dataclasses.replace(self, **kw)
 
+    def as_distance(self) -> torch.Tensor:
+        """Per-match distance-like score (lower = better)."""
+        if self.score_type == ScoreType.DISTANCE.value:
+            return self.score
+        return 1.0 - self.score
+
+    def quality(self) -> torch.Tensor:
+        """Per-match normalized quality (higher = better) in [0, 1]."""
+        if self.score_type == ScoreType.DISTANCE.value:
+            return 1.0 - torch.clamp(self.score, max=1.0)
+        return self.score
+
+    def filter_by_score(self, threshold: float) -> "Matches":
+        """Keep matches better than threshold."""
+        if self.score_type == ScoreType.DISTANCE.value:
+            keep = self.score <= threshold
+        else:
+            keep = self.score >= threshold
+        return self.replace(mask=self.mask & keep)
+
+    def top_k(self, k: int) -> "Matches":
+        """Keep the k best valid matches, sorted best-first (ties to the
+        lower index)."""
+        q = torch.where(self.mask, self.quality(),
+                        torch.full_like(self.score, -float("inf")))
+        idx = torch.argsort(-q, stable=True)[:k]
+        return self.replace(idx1=self.idx1[idx], idx2=self.idx2[idx],
+                            score=self.score[idx], mask=self.mask[idx])
+
     def gather_points(self, feats1: Features, feats2: Features):
         """(M,2),(M,2) matched coordinates (invalid rows are garbage — mask!)."""
         return feats1.xy[self.idx1.long()], feats2.xy[self.idx2.long()]
@@ -206,6 +268,8 @@ class MethodResult:
     detection_time: float = 0.0
     matching_time: float = 0.0
     matcher_used: str = ""
+    # why the method produced no result, when it failed on this pair
+    error: Optional[str] = None
 
     @property
     def best_matches(self) -> Matches:
@@ -235,3 +299,76 @@ class MethodResult:
         if self.reprojection_error is not None:
             score += max(0.0, 1.0 - self.reprojection_error / 10.0) * 0.2
         return score
+
+
+@dataclasses.dataclass
+class MatchingResult:
+    """Multi-method container for one image pair: dict-like access by
+    method name, ranking and best-method selection."""
+
+    results: Dict[str, MethodResult]
+    image1_name: str = ""
+    image2_name: str = ""
+    image1_shape: tuple = ()
+    image2_shape: tuple = ()
+    total_processing_time: float = 0.0
+    metadata: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def __getitem__(self, method: str) -> MethodResult:
+        return self.results[method]
+
+    def __contains__(self, method: str) -> bool:
+        return method in self.results
+
+    def keys(self):
+        return self.results.keys()
+
+    def values(self):
+        return self.results.values()
+
+    def items(self):
+        return self.results.items()
+
+    def rank_methods(self):
+        """Methods sorted by quality score, best first (stable: ties keep
+        the configured order)."""
+        return sorted(self.results.items(),
+                      key=lambda kv: kv[1].get_quality_score(), reverse=True)
+
+    def get_best(self) -> Optional[MethodResult]:
+        """Best method by quality score."""
+        ranked = self.rank_methods()
+        return ranked[0][1] if ranked else None
+
+    def get_best_method_name(self) -> Optional[str]:
+        ranked = self.rank_methods()
+        return ranked[0][0] if ranked else None
+
+    def summary(self) -> Dict[str, Any]:
+        return {
+            "pair": (self.image1_name, self.image2_name),
+            "methods": {
+                name: {
+                    "num_matches": r.num_matches,
+                    "num_raw_matches": r.num_raw_matches,
+                    "inlier_ratio": r.inlier_ratio,
+                    "reprojection_error": r.reprojection_error,
+                    "quality_score": r.get_quality_score(),
+                    "total_time": r.total_time,
+                }
+                for name, r in self.results.items()
+            },
+            "best_method": self.get_best_method_name(),
+            "total_processing_time": self.total_processing_time,
+        }
+
+
+def pack_binary_descriptors(bits: np.ndarray) -> np.ndarray:
+    """(N, D) {0,1} -> (N, D) +-1 float32 for Hamming matching by a dot
+    product."""
+    return (np.asarray(bits, np.float32) * 2.0 - 1.0)
+
+
+def hamming_from_pm1(dot, dim: int):
+    """Recover Hamming distance from a +-1 descriptor dot product."""
+    return (dim - dot) * 0.5

@@ -1,8 +1,10 @@
 """Inter-stage pickle format: the contract between the matching stage and
-the SfM stage, loader half.
+the SfM stage.
 
-Port of `tpu3drec/io/batch_pickle.py:load_and_validate_pickle`. The
-schema is the reference's:
+Port of `tpu3drec/io/batch_pickle.py`: the writer (`pair_data_from_result`,
+`save_batch`, `save_image_metadata`), the loader
+(`load_and_validate_pickle`) and the stage glue (`load_images`, the
+keypoint dict converters). The schema is the reference's:
 
   <base>_batch_NNN.pkl : {results: {(img1, img2): pair_data},
                           batch_stats, overall_progress, config}
@@ -22,10 +24,81 @@ import ast
 import glob
 import pickle
 import re
+import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
 
 PairKey = Tuple[str, str]
+
+
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def pair_data_from_result(result, max_matches: Optional[int] = None) -> Dict:
+    """MethodResult -> reference pair_data dict (Nx4 correspondences)."""
+    m = result.best_matches
+    p1 = _host(result.features1.xy)[_host(m.idx1)]
+    p2 = _host(result.features2.xy)[_host(m.idx2)]
+    valid = _host(m.mask)
+    corr = np.concatenate([p1[valid], p2[valid]], axis=1)
+    if max_matches:
+        corr = corr[:max_matches]
+    scores = _host(m.score)[valid]
+    if max_matches:
+        scores = scores[:max_matches]
+    return {
+        "correspondences": corr.tolist(),
+        "num_matches": len(corr),
+        "quality_score": float(result.get_quality_score()),
+        "method": result.method,
+        "score_type": m.score_type,
+        # raw per-match scores for score-type-aware confidence
+        # normalization downstream
+        "match_scores": scores.tolist(),
+        "processing_time": float(result.total_time),
+        "inlier_ratio": result.inlier_ratio,
+        "reprojection_error": result.reprojection_error,
+    }
+
+
+def save_batch(output_dir, base: str, batch_number: int,
+               results: Dict[PairKey, Dict],
+               config: Optional[Dict] = None,
+               progress: Optional[Dict] = None) -> Path:
+    """Write one <base>_batch_NNN.pkl in the reference schema."""
+    out = Path(output_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / f"{base}_batch_{batch_number:03d}.pkl"
+    payload = {
+        "results": results,
+        "batch_stats": {
+            "batch_number": batch_number,
+            "pairs_in_batch": len(results),
+            "batch_processing_time": sum(
+                r.get("processing_time", 0.0) for r in results.values()),
+            "timestamp": time.time(),
+        },
+        "overall_progress": progress or {},
+        "config": config or {},
+    }
+    with open(path, "wb") as f:
+        pickle.dump(payload, f)
+    return path
+
+
+def save_image_metadata(output_dir, base: str,
+                        metas: Sequence) -> Path:
+    out = Path(output_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / f"{base}_image_metadata.pkl"
+    images = [m.to_dict() if hasattr(m, "to_dict") else dict(m) for m in metas]
+    with open(path, "wb") as f:
+        pickle.dump({"images": images}, f)
+    return path
 
 
 def load_and_validate_pickle(pickle_file: str) -> Dict:
@@ -119,3 +192,48 @@ def load_and_validate_pickle(pickle_file: str) -> Dict:
         "total_images": len(image_names),
         "batch_info": {"files": [str(b) for b in batch_files]},
     }
+
+
+def load_images(image_paths: Sequence[str]) -> List[Tuple[np.ndarray, str]]:
+    """(image, filename) tuples for each decodable path, skipping failures
+    with a warning. Images are float32 grayscale [0,1], the detectors'
+    contract."""
+    from tpu3drec_torch.io.images import _read_image
+    out: List[Tuple[np.ndarray, str]] = []
+    for path in image_paths:
+        try:
+            img = _read_image(str(path))
+        except Exception as e:  # noqa: BLE001 - an unreadable file is skipped
+            print(f"Warning: Could not load image {path}: {e}")
+            continue
+        out.append((img, Path(path).name))
+    return out
+
+
+def keypoints_to_serializable(features) -> List[Dict]:
+    """Features -> list of cv2.KeyPoint-style dicts (valid rows only):
+    `angle` in DEGREES in [0, 360), `size` a diameter."""
+    f = features.to_numpy() if hasattr(features, "to_numpy") else features
+    xy, size = np.asarray(f["xy"]), np.asarray(f["scale"])
+    ang, resp = np.asarray(f["angle"]), np.asarray(f["response"])
+    ang_deg = np.degrees(ang) % 360.0
+    return [{"pt": (float(xy[i, 0]), float(xy[i, 1])), "size": float(size[i]),
+             "angle": float(ang_deg[i]), "response": float(resp[i])}
+            for i in range(len(xy))]
+
+
+def serializable_to_keypoints(serializable_kps: Sequence[Dict],
+                              desc=None, image_shape=(), device=None):
+    """Inverse of keypoints_to_serializable: degrees -> radians wrapped to
+    (-pi, pi]; a Features on `device` (None means CUDA)."""
+    from tpu3drec_torch.core.types import Features
+    items = list(serializable_kps)
+    xy = np.asarray([d["pt"] for d in items], np.float32).reshape(-1, 2)
+    deg = np.asarray([d.get("angle", 0.0) for d in items], np.float32)
+    rad = np.radians(deg)
+    rad = (rad + np.pi) % (2 * np.pi) - np.pi
+    return Features.from_numpy(
+        xy, desc if desc is not None else np.zeros((len(xy), 0)),
+        response=[d.get("response", 0.0) for d in items],
+        scale=[d.get("size", 1.0) for d in items],
+        angle=rad, image_shape=image_shape, device=device)

@@ -1,8 +1,9 @@
-"""Image primitives of the SIFT and dense paths: grayscale, normalisation,
-the banded Gaussian blur, octave decimation, gradients, the box filter and
-the bilinear homography warp.
+"""Image primitives of the SIFT, ORB and dense paths: grayscale,
+normalisation, JAX's antialiased linear resize, the separable and the
+banded Gaussian blur, octave decimation, Sobel and central gradients, the
+box filter and the bilinear homography warp.
 
-Port of the main-path subset of `tpu3drec/ops/image.py`. Images are
+Port of `tpu3drec/ops/image.py` less its TPU band warp. Images are
 float32 `(..., H, W)` tensors in [0, 1]; every function works on any
 number of leading batch dimensions. The blur is two dense matrix products
 with a banded reflect-101 Toeplitz matrix, as in the reference; with TF32
@@ -35,6 +36,79 @@ def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
 def normalize_u8(img: torch.Tensor) -> torch.Tensor:
     """uint8 [0,255] -> float32 [0,1]."""
     return img.to(torch.float32) * (1.0 / 255.0)
+
+
+@functools.lru_cache(maxsize=256)
+def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_in, n_out) weights of `jax.image.resize(..., "linear")` along one
+    axis, built as JAX's `compute_weight_mat` builds them in float32:
+    half-pixel sample positions, a triangle kernel widened by 1/scale when
+    downsampling (antialias), columns normalised to sum 1, and samples
+    outside the input zeroed. Read-only."""
+    f32 = np.float32
+    # the forms XLA compiles the reference's expressions to: 1 / scale
+    # folded in float64, (i + 0.5) * inv_scale - 0.5 as one fused
+    # multiply-add (a float64 product of two float32 values is exact), and
+    # the normalisation as a product with the reciprocal of the sum
+    inv_scale = f32(n_in / n_out)
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample = ((np.arange(n_out, dtype=f32) + f32(0.5)).astype(np.float64)
+              * np.float64(inv_scale) - 0.5).astype(f32)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) \
+        / kernel_scale
+    w = np.maximum(f32(0.0), f32(1.0) - np.abs(x))
+    total = w.sum(axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w * (f32(1.0) / np.where(total != 0, total, f32(1.0))),
+                 f32(0.0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    w = np.where(inside[None, :], w, f32(0.0)).astype(f32)
+    w.setflags(write=False)
+    return w
+
+
+def resize(img: torch.Tensor, shape) -> torch.Tensor:
+    """Resize `(..., H, W)` to `(..., h, w)` as `jax.image.resize(img,
+    shape, "linear")` does (antialiased when downsampling; an axis whose
+    size does not change is left as it is): two float32 matrix products
+    with the reference's weights."""
+    h, w = shape
+    out = img
+    if h != img.shape[-2]:
+        wh = torch.tensor(_resize_weights(img.shape[-2], h), device=img.device)
+        out = torch.matmul(wh.T, out)
+    if w != img.shape[-1]:
+        ww = torch.tensor(_resize_weights(img.shape[-1], w), device=img.device)
+        out = torch.matmul(out, ww)
+    return out
+
+
+def gaussian_kernel_1d(sigma: float, radius: int = None) -> torch.Tensor:
+    """1-D float32 Gaussian taps; radius defaults to ceil(4 sigma)."""
+    if radius is None:
+        radius = max(1, int(math.ceil(4.0 * sigma)))
+    x = torch.arange(-radius, radius + 1, dtype=torch.float32)
+    k = torch.exp(-0.5 * (x / sigma) ** 2)
+    return k / k.sum()
+
+
+def gaussian_blur(img: torch.Tensor, sigma: float,
+                  radius: int = None) -> torch.Tensor:
+    """Separable Gaussian blur of `(..., H, W)` with reflect padding (two
+    1-D convolutions)."""
+    if sigma <= 0:
+        return img
+    taps = gaussian_kernel_1d(sigma, radius)
+    return _conv1d(_conv1d(img, taps, 0), taps, 1)
+
+
+def sobel_gradients(img: torch.Tensor):
+    """Sobel dx, dy of `(..., H, W)` (cv2.Sobel ksize=3), reflect-padded."""
+    smooth = torch.tensor([1.0, 2.0, 1.0])
+    diff = torch.tensor([-1.0, 0.0, 1.0])
+    dx = _conv1d(_conv1d(img, smooth, 0), diff, 1)
+    dy = _conv1d(_conv1d(img, diff, 0), smooth, 1)
+    return dx, dy
 
 
 @functools.lru_cache(maxsize=256)

@@ -301,4 +301,4 @@ def detect_sift_features(img: torch.Tensor, max_features: int = 2048,
     return Features(xy=xy, response=resp, scale=scale, angle=angle,
                     desc=desc, mask=mask, method=method,
                     desc_kind=DescriptorKind.FLOAT.value,
-                    image_shape=tuple(img.shape))
+                    image_shape=tuple(img.shape[-2:]))

@@ -1,1 +1,2 @@
-"""Ported pipelines: dense reconstruction (`dense`)."""
+"""Ported pipelines: folder matching (`matching`) and dense
+reconstruction (`dense`)."""
