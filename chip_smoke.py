@@ -54,10 +54,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
      at bench.py:bench_sfm's folder: 50 views of 640x480 around 15,000
      points (the port's `make_sfm_scene`). One cold run, with the kernels'
      launch counts read around it (0: no TPU kernel lies on this path),
-     then two steady runs (one when a run takes over PIPE_RUN_LIMIT_S)
-     give views/s; every view must register, the final mean reprojection
+     then one steady run give views/s; every view must register, the
+     final mean reprojection
      stay under 1 px and every consecutive relative rotation within 1 deg
-     of the truth; the per-phase split of the last run; one profiled run
+     of the truth; the per-phase split of the steady run; one profiled run
      of a 6-view cut (busy share, the sfm.* ranges' host and device
      time, device time by kernel); tests/test_sfm_pipeline.py's 5-view
      scene on the card against the CPU plain path;
@@ -77,12 +77,32 @@ Phases, each of which raises (and so exits non-zero) on failure:
      engine fallback, failed pair or method error. The first batch of 8
      pairs on the card against the CPU plain path (the same pairs, raw
      match counts within max(2, 2%), the same best method where the CPU's
-     scores differ by more than 0.02), the views a 4-view cut registers
-     on both, and `knn2` on one batch's ORB operands bit for bit against
-     its plain version, twice, timed beside its bound;
-  8. one JSON line with every kernel's launches (by path), error, time,
+     scores differ by more than 0.02), the CPU's SfM on the card's
+     matches, the dense stage on a 7-view cut of the card's registered
+     views (card and CPU), the views a 4-view cut registers on both, and
+     `knn2` on one batch's ORB operands bit for bit against its plain
+     version, twice, timed beside its bound;
+  8. the same folder through the CLI `auto --preset accurate --dense`
+     chain: `reconstruct_folder(..., preset="accurate", dense=True)`
+     (SIFT at contrast 0.03, AKAZE at 0.0005 and BRISK at 20/255, each
+     at 3,000 features). One cold run with the launches of `ori_desc`,
+     `knn2` (counted by method: SIFT l2_int8, AKAZE and BRISK
+     hamming_pm1) and `sgm` read around it (any zero fails), then one
+     timed run: images/s, pairs/s, each stage's seconds, the engine's
+     device calls (2 x 3 x batches), each method's slot fill and mean
+     raw matches (at least 20 a pair), views registered, reprojection,
+     rotations against the renderer's (and the neighbouring views off
+     by 1 deg or more), cloud points and mesh faces; no fallback, failed
+     pair or method error. The first batch on the card against the CPU
+     plain path (raw counts, best method, AKAZE's and BRISK's keypoints
+     and bits per image by the CPU tests' shares); each detector's
+     seconds and a profiled AKAZE call; Harris and GoodFeatures pairs and
+     SIFT's gather sampler and `upscale`, card against CPU; `ori_desc`
+     at the batch's SIFT octaves and `knn2` at its AKAZE (486 wide,
+     padded to 512) and BRISK operands against their plain versions;
+  9. one JSON line with every kernel's launches (by path), error, time,
      bound and the plain and library yardsticks; each phase's seconds;
-  9. last line: {"ok": true, "device": {...}}.
+  10. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or without the package beside it, it fails before printing
 any result. It imports nothing of JAX.
@@ -139,8 +159,6 @@ BA_CAMS, BA_PTS, BA_OBS_PER_PT = 50, 100_000, 5
 # 0.85 visibility) and its default SfMConfig
 PIPE_VIEWS, PIPE_POINTS = 50, 15000
 PIPE_PROFILE_VIEWS = 6
-PIPE_STEADY_RUNS = 2
-PIPE_RUN_LIMIT_S = 150      # one steady run instead of two above this
 PIPE_REPROJ_BAR = 1.0       # final mean reprojection (px); the noise is 0.4
 PIPE_ROT_BAR_DEG = 1.0      # consecutive relative rotations vs the truth
 # card against the CPU plain path on tests/test_sfm_pipeline.py's scene
@@ -193,7 +211,26 @@ FOLDER_CLOUD_BAR = 45_000
 FOLDER_VALID_BAR = 0.6
 FOLDER_DENSE_VALID_ABS = 0.001
 FOLDER_DENSE_CLOUD_RTOL = 0.01
+FOLDER_DENSE_CUT = 7          # views of the card-vs-CPU dense comparison
 FOLDER_METRIC_BY_DEPTH = {128: "l2_int8", 256: "hamming_pm1"}
+
+# phase 8: the same folder through the CLI `auto --preset accurate
+# --dense` chain (SIFT + AKAZE + BRISK at 3,000 features; flann 0.7 for
+# SIFT, bf 0.75 for AKAZE and BRISK). The bars rest on runs of both
+# packages on this folder on the CPU (tests/folder_chain_cpu.py --dense
+# --preset accurate; PERF.md): each registered all 24 views at
+# 0.355 / 0.367 px with every one of the 23 neighbouring pairs within
+# 1 deg (median 0.047 / 0.038 deg); the port read 147.1 / 59.3 / 315.2
+# mean raw matches a pair for SIFT / AKAZE / BRISK, and AKAZE and BRISK
+# fill all 3,000 slots of every view (SIFT 1,314 on the median view). The
+# views and reprojection bars are phase 7's; the rotation share is one
+# pair of 23 under the lowest reading (100%)
+ACC_PRESET = "accurate"
+ACC_METRIC = {"SIFT": "l2_int8", "AKAZE": "hamming_pm1", "BRISK": "hamming_pm1"}
+ACC_DEPTH_METHOD = {128: "SIFT", 486: "AKAZE", 512: "BRISK"}
+ACC_RAW_MATCHES_BAR = 20      # each method's mean raw matches a pair
+ACC_ROT_SHARE_BAR = 0.95      # share of neighbouring views within 1 deg
+ACC_SHARE = 0.99              # AKAZE / BRISK keypoints and bits, card vs CPU
 
 # NVIDIA H100 SXM data-sheet peaks (dense)
 PEAK_BYTES_PER_S = 3.35e12
@@ -1587,24 +1624,14 @@ def run_pipeline(torch, card, dev):
         fail("the SfM pipeline launched a kernel of another path")
     print(f"SfM pipeline cold run ({PIPE_VIEWS} views, {PIPE_POINTS} points): "
           f"{recon.num_cameras / cold:.4f} views/s ({cold:.2f} s)")
-    steady = []
-    for _ in range(PIPE_STEADY_RUNS):
-        pipe, recon, dt = sfm_pipeline_run(torch, md, info, dev)
-        steady.append(dt)
-        if dt > PIPE_RUN_LIMIT_S:
-            print(f"a steady run took {dt:.1f} s > {PIPE_RUN_LIMIT_S} s: "
-                  f"one steady run only")
-            break
-    rates = [recon.num_cameras / dt for dt in steady]
+    pipe, recon, steady = sfm_pipeline_run(torch, md, info, dev)
     errs = reprojection_errors(recon)
     mre = float(np.mean(errs)) if len(errs) else np.inf
     rot = consecutive_rotation_errors(recon, [R for R, _ in gt["views"]],
                                       gt["names"])
     init = next(h for h in pipe.history if h["phase"] == "init")
-    print(f"SfM pipeline steady: {float(np.median(rates)):.4f} views/s "
-          f"(median of {len(rates)}: "
-          f"{', '.join(f'{r:.4f}' for r in rates)}; "
-          f"{', '.join(f'{dt:.2f}' for dt in steady)} s); cold "
+    print(f"SfM pipeline steady: {recon.num_cameras / steady:.4f} views/s "
+          f"(one run, {steady:.2f} s); cold "
           f"{recon.num_cameras / cold:.4f} views/s; on {card}")
     print(f"SfM pipeline result: {recon.num_cameras} cameras, "
           f"{recon.num_points} points, {recon.num_observations} observations, "
@@ -1705,11 +1732,12 @@ def render_splat_views(folder, n_views, n_pts, seed=0, f=FOLDER_F):
     return names, Rs
 
 
-def folder_sfm_bars(recon, Rs, names, label):
-    """Phase 7's SfM bars on one reconstruction of the folder: views
-    registered, final mean reprojection, and the relative rotations of
-    neighbouring registered views against the renderer's (median, and
-    the share within FOLDER_ROT_BAR_DEG). Prints them."""
+def folder_sfm_bars(recon, Rs, names, label, share_bar=FOLDER_ROT_SHARE_BAR):
+    """The folder chain's SfM bars on one reconstruction of the folder:
+    views registered, final mean reprojection, and the relative rotations
+    of neighbouring registered views against the renderer's (median, and
+    `share_bar` of them within FOLDER_ROT_BAR_DEG). Prints them; returns
+    the rotation errors (deg)."""
     from tpu3drec_torch.sfm.quality import reprojection_errors
     errs = reprojection_errors(recon)
     mre = float(np.mean(errs)) if len(errs) else np.inf
@@ -1729,18 +1757,19 @@ def folder_sfm_bars(recon, Rs, names, label):
     if not mre < FOLDER_REPROJ_BAR:
         fail(f"folder chain ({label}): final mean reprojection must be "
              f"under {FOLDER_REPROJ_BAR} px")
-    if not med < FOLDER_ROT_BAR_DEG or within < FOLDER_ROT_SHARE_BAR:
+    if not med < FOLDER_ROT_BAR_DEG or within < share_bar:
         fail(f"folder chain ({label}): the median relative rotation and "
-             f"{100 * FOLDER_ROT_SHARE_BAR:.0f}% of them must be within "
+             f"{100 * share_bar:.0f}% of them must be within "
              f"{FOLDER_ROT_BAR_DEG} deg of the renderer's")
+    return rot
 
 
-def folder_chain(torch, folder, out, device, dense=True):
-    """One `reconstruct_folder` at the CLI auto command's defaults on
-    `device`; returns (result, seconds)."""
+def folder_chain(torch, folder, out, device, dense=True, preset="balanced"):
+    """One `reconstruct_folder` at the CLI auto command's defaults (with
+    `preset`) on `device`; returns (result, seconds)."""
     import tpu3drec_torch as tv
     t0 = time.perf_counter()
-    res = tv.reconstruct_folder(folder, out, preset="balanced",
+    res = tv.reconstruct_folder(folder, out, preset=preset,
                                 pair_mode="consecutive",
                                 pair_window=FOLDER_PAIR_WINDOW, dense=dense,
                                 device=device)
@@ -1761,14 +1790,14 @@ def folder_checks(res, label):
     return m
 
 
-def folder_fill(torch, folder, names, dev):
-    """Valid keypoints per view of each balanced-preset method, from one
+def folder_fill(torch, folder, names, dev, preset="balanced"):
+    """Valid keypoints per view of each of the preset's methods, from one
     batched detection on the card."""
     from tpu3drec_torch.api import (
         _detector_params, _get_detector_registry, prepare_image,
     )
     from tpu3drec_torch.core.config import create_config_from_preset
-    cfg = create_config_from_preset("balanced")
+    cfg = create_config_from_preset(preset)
     stack = torch.stack([prepare_image(np.load(os.path.join(folder, n)), dev)
                          for n in names])
     out = {}
@@ -1779,11 +1808,11 @@ def folder_fill(torch, folder, names, dev):
     return out, cfg["max_features"]
 
 
-def batch_results(torch, images, pairs, device):
+def batch_results(torch, images, pairs, device, preset="balanced"):
     """The batched engine's MatchingResults for `pairs` on `device`, with
-    the chain's config (balanced, no homography filtering)."""
+    the chain's config (the preset, no homography filtering)."""
     import tpu3drec_torch as tv
-    pipe = tv.create_pipeline("balanced", {
+    pipe = tv.create_pipeline(preset, {
         "filtering": {"use_adaptive_filtering": False}}, device=device)
     return pipe._match_pairs_batched(images, pairs)
 
@@ -1809,17 +1838,50 @@ def folder_knn2(torch, pm, ops, label):
                 library_bf16_ms=lib_bf16_ms)
 
 
-def run_folder(torch, card, dev):
+def spy_kernel_inputs(mt, ps):
+    """Spies on the matcher's `knn2` entry and the SIFT detector's
+    `ori_desc` entry (they launch nothing themselves): the count of knn2
+    calls by descriptor depth, the first call's operands at each depth,
+    and the first detection call's octaves (until octave 0's shape comes
+    again). Returns (calls, operands, octaves, restore)."""
+    from types import SimpleNamespace
+    calls, ops, octaves, first = {}, {}, [], [True]
+    knn2_entry, windows_entry = mt.knn2_raw, ps.ori_desc_windows
+
+    def knn2_spy(a, b, bnorm, mask2):
+        d = a.shape[-1]
+        calls[d] = calls.get(d, 0) + 1
+        if d not in ops:
+            ops[d] = tuple(t.clone() for t in (a, b, bnorm, mask2))
+        return knn2_entry(a, b, bnorm, mask2)
+
+    def windows_spy(dxs, dys, meta, hp, fb):
+        if first[0] and octaves and dxs.shape[1:] == octaves[0].dxs.shape[1:]:
+            first[0] = False
+        if first[0]:
+            octaves.append(SimpleNamespace(
+                octave=len(octaves), dxs=dxs.clone(), dys=dys.clone(),
+                meta=meta.clone(), hp=hp, fb=fb))
+        return windows_entry(dxs, dys, meta, hp, fb)
+
+    def restore():
+        mt.knn2_raw, ps.ori_desc_windows = knn2_entry, windows_entry
+
+    mt.knn2_raw, ps.ori_desc_windows = knn2_spy, windows_spy
+    return calls, ops, octaves, restore
+
+
+def run_folder(torch, card, dev, tmp, names, Rs):
     """Phase 7: the folder chain images -> matches -> SfM -> mesh at the
-    CLI auto command's defaults, on 24 rendered views of 640x480; its
+    CLI auto command's defaults, on the 24 rendered views of 640x480 in
+    `tmp`/imgs (`names`, the renderer's rotations `Rs`); its
     kernels' launches, bars, the card against the CPU plain path (the
     first batch's matching, the SfM stage on the card's own matches, the
-    dense stage on the card's own registered views, a 4-view cut), and
+    dense stage on a 7-view cut of the card's registered views, a 4-view
+    cut of the chain), and
     `ori_desc` and `knn2` (both metrics) on the first batch's operands
     against their plain versions."""
     import copy
-    import tempfile
-    from types import SimpleNamespace
     import tpu3drec_torch.pipelines.dense as pdense
     from tpu3drec_torch.io.images import FolderImageSource
     from tpu3drec_torch.ops import match as mt
@@ -1831,242 +1893,227 @@ def run_folder(torch, card, dev):
 
     t_phase = time.perf_counter()
     cpu = torch.device("cpu")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_folder_") as tmp:
-        folder = os.path.join(tmp, "imgs")
-        os.mkdir(folder)
-        names, Rs = render_splat_views(folder, FOLDER_VIEWS, FOLDER_POINTS)
-        fill, cap = folder_fill(torch, folder, names, dev)
-        print(f"folder: {FOLDER_VIEWS} views of 640x480, {FOLDER_POINTS} "
-              f"splats, f = {FOLDER_F}; keypoints per view of {cap} slots: "
-              + "; ".join(f"{m} median {int(np.median(v))} ({100 * np.median(v) / cap:.1f}%), "
-                          f"min {int(v.min())}, max {int(v.max())}"
-                          for m, v in fill.items()))
-        if np.median(fill["SIFT"]) < cap / 2:
-            fail("folder: SIFT fills under half of its slots on the median view")
+    folder = os.path.join(tmp, "imgs")
+    fill, cap = folder_fill(torch, folder, names, dev)
+    print(f"folder: {FOLDER_VIEWS} views of 640x480, {FOLDER_POINTS} "
+          f"splats, f = {FOLDER_F}; keypoints per view of {cap} slots: "
+          + "; ".join(f"{m} median {int(np.median(v))} ({100 * np.median(v) / cap:.1f}%), "
+                      f"min {int(v.min())}, max {int(v.max())}"
+                      for m, v in fill.items()))
+    if np.median(fill["SIFT"]) < cap / 2:
+        fail("folder: SIFT fills under half of its slots on the median view")
 
-        # the kernels' inputs as the path hands them: spies on the
-        # matcher's `knn2` entry and the SIFT detector's `ori_desc` entry
-        # count each knn2 call's depth and keep the first batch's operands
-        # of each (they launch nothing themselves)
-        calls, knn2_ops, octaves, first = {}, {}, [], [True]
-        knn2_entry, windows_entry = mt.knn2_raw, ps.ori_desc_windows
+    # the kernels' inputs as the path hands them
+    calls, knn2_ops, octaves, restore = spy_kernel_inputs(mt, ps)
+    try:
+        ps.ori_desc.launches = pm.knn2_raw.launches = 0
+        psg.sgm_aggregate_batch.launches = 0
+        res, cold = folder_chain(torch, folder, os.path.join(tmp, "cold"), dev)
+        launches = {"ori_desc": ps.ori_desc.launches,
+                    "knn2": pm.knn2_raw.launches,
+                    "sgm": psg.sgm_aggregate_batch.launches}
+    finally:
+        restore()
+    by_metric = {FOLDER_METRIC_BY_DEPTH.get(d, d): n
+                 for d, n in sorted(calls.items())}
+    print(f"launches in the folder chain's cold run: {launches}; knn2 "
+          f"calls by metric: {by_metric}")
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"the folder chain never launched the {name} kernel")
+    if set(by_metric) != {"l2_int8", "hamming_pm1"}:
+        fail("the folder chain did not run knn2 on both the SIFT and "
+             "the ORB input")
+    folder_checks(res, "cold")
 
-        def knn2_spy(a, b, bnorm, mask2):
-            d = a.shape[-1]
-            calls[d] = calls.get(d, 0) + 1
-            if d not in knn2_ops:
-                knn2_ops[d] = tuple(t.clone() for t in (a, b, bnorm, mask2))
-            return knn2_entry(a, b, bnorm, mask2)
+    # the steady run; spies keep what its SfM and dense stages were
+    # handed, for the CPU plain path below
+    handed = {}
+    sfm_entry, dense_entry = (SfMPipeline.reconstruct,
+                              pdense.run_dense_reconstruction)
 
-        def windows_spy(dxs, dys, meta, hp, fb):
-            # the first detection call's octaves: until octave 0's shape
-            # comes again
-            if first[0] and octaves and dxs.shape[1:] == octaves[0].dxs.shape[1:]:
-                first[0] = False
-            if first[0]:
-                octaves.append(SimpleNamespace(
-                    octave=len(octaves), dxs=dxs.clone(), dys=dys.clone(),
-                    meta=meta.clone(), hp=hp, fb=fb))
-            return windows_entry(dxs, dys, meta, hp, fb)
+    def sfm_spy(self, matches_data, image_info, *a, **k):
+        handed["sfm"] = copy.deepcopy((matches_data, image_info))
+        return sfm_entry(self, matches_data, image_info, *a, **k)
 
-        mt.knn2_raw, ps.ori_desc_windows = knn2_spy, windows_spy
-        try:
-            ps.ori_desc.launches = pm.knn2_raw.launches = 0
-            psg.sgm_aggregate_batch.launches = 0
-            res, cold = folder_chain(torch, folder, os.path.join(tmp, "cold"), dev)
-            launches = {"ori_desc": ps.ori_desc.launches,
-                        "knn2": pm.knn2_raw.launches,
-                        "sgm": psg.sgm_aggregate_batch.launches}
-        finally:
-            mt.knn2_raw, ps.ori_desc_windows = knn2_entry, windows_entry
-        by_metric = {FOLDER_METRIC_BY_DEPTH.get(d, d): n
-                     for d, n in sorted(calls.items())}
-        print(f"launches in the folder chain's cold run: {launches}; knn2 "
-              f"calls by metric: {by_metric}")
-        for name, n in launches.items():
-            if n == 0:
-                fail(f"the folder chain never launched the {name} kernel")
-        if set(by_metric) != {"l2_int8", "hamming_pm1"}:
-            fail("the folder chain did not run knn2 on both the SIFT and "
-                 "the ORB input")
-        folder_checks(res, "cold")
+    def dense_spy(sparse, images, *a, **k):
+        handed["dense"] = copy.deepcopy((sparse, images))
+        return dense_entry(sparse, images, *a, **k)
 
-        # the steady run; spies keep what its SfM and dense stages were
-        # handed, for the CPU plain path below
-        handed = {}
-        sfm_entry, dense_entry = (SfMPipeline.reconstruct,
-                                  pdense.run_dense_reconstruction)
+    SfMPipeline.reconstruct = sfm_spy
+    pdense.run_dense_reconstruction = dense_spy
+    try:
+        res, steady = folder_chain(torch, folder,
+                                   os.path.join(tmp, "steady"), dev)
+    finally:
+        SfMPipeline.reconstruct = sfm_entry
+        pdense.run_dense_reconstruction = dense_entry
+    m = folder_checks(res, "steady")
+    recon = res["reconstruction"]
+    n_pairs = m["stats"]["total_pairs"]
+    n_methods = len(m["config"]["methods"])
+    n_batches = -(-n_pairs // FOLDER_BATCH)
+    t = res["timings_s"]
+    dense = res.get("dense") or {}
+    mesh = dense.get("mesh", {})
+    cloud = dense.get("point_cloud", {})
+    valid = dense.get("depth", {}).get("valid_fraction", 0.0)
+    print(f"folder chain: {FOLDER_VIEWS / steady:.4f} images/s end to end "
+          f"({steady:.2f} s steady; cold {cold:.2f} s, "
+          f"{FOLDER_VIEWS / cold:.4f} images/s); matching "
+          f"{n_pairs / t['matching']:.3f} pairs/s; seconds: matching "
+          f"{t['matching']:.3f}, SfM {t['sfm']:.3f}, dense "
+          f"{t.get('dense', float('nan')):.3f}; on {card}")
+    print(f"folder chain matching: {n_pairs} pairs in {n_batches} batches, "
+          f"dispatch_count {m['dispatch_count']}; per method: "
+          + "; ".join(f"{k} {v['pairs']} pairs, mean raw matches "
+                      f"{v['mean_raw_matches']:.1f}, mean quality "
+                      f"{v['mean_quality']:.4f}"
+                      for k, v in m["methods"].items()))
+    print(f"folder chain dense: {cloud.get('num_points', 0)} cloud "
+          f"points, fused depth valid on {valid:.4f} of the reference "
+          f"view, {mesh.get('num_faces', 0)} mesh faces "
+          f"({mesh.get('method')}, reference view "
+          f"{dense.get('reference_view')})")
+    if m["dispatch_count"] != 2 * n_methods * n_batches:
+        fail(f"folder chain: {m['dispatch_count']} engine calls, not "
+             f"2 x {n_methods} methods x {n_batches} batches")
+    folder_sfm_bars(recon, Rs, names, "the card")
+    dense_dir = os.path.join(tmp, "steady", "dense")
+    if cloud.get("num_points", 0) < FOLDER_CLOUD_BAR \
+            or not valid > FOLDER_VALID_BAR or not all(
+            os.path.exists(os.path.join(dense_dir, f)) for f in
+            ("fused_depth.npy", "point_cloud.ply", "mesh.obj")):
+        fail(f"folder chain: dense artifacts missing, fewer than "
+             f"{FOLDER_CLOUD_BAR} cloud points or the fused depth valid "
+             f"on no more than {FOLDER_VALID_BAR} of the reference view")
 
-        def sfm_spy(self, matches_data, image_info, *a, **k):
-            handed["sfm"] = copy.deepcopy((matches_data, image_info))
-            return sfm_entry(self, matches_data, image_info, *a, **k)
+    # the SfM stage on the CPU plain path, on the card's own matches:
+    # the card's matches must carry the CPU's SfM over the same bars,
+    # and the two must agree on the median relative rotation of the
+    # neighbouring views both registered. Which weak views register,
+    # and how far off, turns on float order on both devices (the CPU's
+    # own runs differ with its thread count, the card's with its
+    # atomics), so the views and the worst pair are compared, not held
+    # equal
+    md, info = handed.pop("sfm")
+    _, ra, _ = sfm_pipeline_run(torch, md, info, dev)
+    rot_a = consecutive_rotation_errors(ra, Rs, names)
+    print(f"folder chain SfM, the card again on the same matches: "
+          f"{ra.num_cameras} views (missing "
+          f"{sorted(set(names) - set(ra.cameras))}), {ra.num_points} "
+          f"points, {100 * float(np.mean(rot_a < FOLDER_ROT_BAR_DEG)):.1f}% "
+          f"within {FOLDER_ROT_BAR_DEG} deg (the steady run: "
+          f"{recon.num_cameras} views, {recon.num_points} points; BA's "
+          f"segment sums are float atomics on the card)")
+    del ra
+    t0 = time.perf_counter()
+    _, rh, _ = sfm_pipeline_run(torch, md, info, cpu)
+    sfm_cpu_s = time.perf_counter() - t0
+    folder_sfm_bars(rh, Rs, names, "the CPU plain path on the card's "
+                    "matches")
+    common = [n for n in names if n in recon.cameras and n in rh.cameras]
+    drot = consecutive_rotation_errors(
+        recon, [rh.cameras[n].R for n in common], common)
+    print(f"folder chain SfM, card vs CPU plain path on the card's "
+          f"matches: views only on the card "
+          f"{sorted(set(recon.cameras) - set(rh.cameras))}, only on the "
+          f"CPU {sorted(set(rh.cameras) - set(recon.cameras))}; points "
+          f"{recon.num_points} vs {rh.num_points}; relative rotations of "
+          f"neighbouring common views within "
+          f"{drot.max() if len(drot) else np.inf:.4f} deg of each other, "
+          f"median {np.median(drot) if len(drot) else np.inf:.4f} "
+          f"({sfm_cpu_s:.1f} s on the CPU)")
+    if not len(drot) or not np.median(drot) < PIPE_CPU_ROT_DEG:
+        fail(f"folder chain: the card's SfM and the CPU plain path's on "
+             f"the same matches differ by {PIPE_CPU_ROT_DEG} deg or more "
+             f"in the median relative rotation of neighbouring views")
+    del rh
 
-        def dense_spy(sparse, images, *a, **k):
-            handed["dense"] = copy.deepcopy((sparse, images))
-            return dense_entry(sparse, images, *a, **k)
+    # the dense stage on the card and on the CPU plain path, on a cut of
+    # the card's own registered views and images: the FOLDER_DENSE_CUT
+    # views nearest the chain's reference view by name, with that
+    # reference (the CPU's stage over every view was most of this
+    # phase's time)
+    sparse, dimgs = handed.pop("dense")
+    ref_view = dense.get("reference_view")
+    posed = sorted(n for n in sparse["camera_poses"] if n in dimgs)
+    at = posed.index(ref_view)
+    lo = max(0, min(at - FOLDER_DENSE_CUT // 2, len(posed) - FOLDER_DENSE_CUT))
+    cut_imgs = {n: dimgs[n] for n in posed[lo:lo + FOLDER_DENSE_CUT]}
+    dc = pdense.run_dense_reconstruction(sparse, cut_imgs,
+                                         reference_view=ref_view, device=dev)
+    t0 = time.perf_counter()
+    dh = pdense.run_dense_reconstruction(sparse, cut_imgs,
+                                         reference_view=ref_view, device=cpu)
+    dense_cpu_s = time.perf_counter() - t0
+    vc, vh = dc["depth"]["valid_fraction"], dh["depth"]["valid_fraction"]
+    cc, ch = dc["point_cloud"]["num_points"], dh["point_cloud"]["num_points"]
+    print(f"folder chain dense, card vs CPU plain path on the same "
+          f"{dh['num_views']} of the card's registered views (reference "
+          f"{dh['reference_view']}): fused depth valid on {vc:.4f} vs "
+          f"{vh:.4f} of the reference view (bar: within "
+          f"{FOLDER_DENSE_VALID_ABS}), cloud {cc} vs {ch} points (bar: within "
+          f"{100 * FOLDER_DENSE_CLOUD_RTOL:.0f}%), mesh "
+          f"{dc['mesh']['num_faces']} vs {dh['mesh']['num_faces']} faces "
+          f"({dense_cpu_s:.1f} s on the CPU)")
+    if dh["reference_view"] != dc["reference_view"] \
+            or dh["num_views"] != dc["num_views"] \
+            or not abs(vc - vh) <= FOLDER_DENSE_VALID_ABS \
+            or not abs(cc - ch) <= FOLDER_DENSE_CLOUD_RTOL * ch:
+        fail("folder chain: the card's dense stage disagrees with the "
+             "CPU plain path on the same views")
+    del res, recon, dc, dh
 
-        SfMPipeline.reconstruct = sfm_spy
-        pdense.run_dense_reconstruction = dense_spy
-        try:
-            res, steady = folder_chain(torch, folder,
-                                       os.path.join(tmp, "steady"), dev)
-        finally:
-            SfMPipeline.reconstruct = sfm_entry
-            pdense.run_dense_reconstruction = dense_entry
-        m = folder_checks(res, "steady")
-        recon = res["reconstruction"]
-        n_pairs = m["stats"]["total_pairs"]
-        n_methods = len(m["config"]["methods"])
-        n_batches = -(-n_pairs // FOLDER_BATCH)
-        t = res["timings_s"]
-        dense = res.get("dense") or {}
-        mesh = dense.get("mesh", {})
-        cloud = dense.get("point_cloud", {})
-        valid = dense.get("depth", {}).get("valid_fraction", 0.0)
-        print(f"folder chain: {FOLDER_VIEWS / steady:.4f} images/s end to end "
-              f"({steady:.2f} s steady; cold {cold:.2f} s, "
-              f"{FOLDER_VIEWS / cold:.4f} images/s); matching "
-              f"{n_pairs / t['matching']:.3f} pairs/s; seconds: matching "
-              f"{t['matching']:.3f}, SfM {t['sfm']:.3f}, dense "
-              f"{t.get('dense', float('nan')):.3f}; on {card}")
-        print(f"folder chain matching: {n_pairs} pairs in {n_batches} batches, "
-              f"dispatch_count {m['dispatch_count']}; per method: "
-              + "; ".join(f"{k} {v['pairs']} pairs, mean raw matches "
-                          f"{v['mean_raw_matches']:.1f}, mean quality "
-                          f"{v['mean_quality']:.4f}"
-                          for k, v in m["methods"].items()))
-        print(f"folder chain dense: {cloud.get('num_points', 0)} cloud "
-              f"points, fused depth valid on {valid:.4f} of the reference "
-              f"view, {mesh.get('num_faces', 0)} mesh faces "
-              f"({mesh.get('method')}, reference view "
-              f"{dense.get('reference_view')})")
-        if m["dispatch_count"] != 2 * n_methods * n_batches:
-            fail(f"folder chain: {m['dispatch_count']} engine calls, not "
-                 f"2 x {n_methods} methods x {n_batches} batches")
-        folder_sfm_bars(recon, Rs, names, "the card")
-        dense_dir = os.path.join(tmp, "steady", "dense")
-        if cloud.get("num_points", 0) < FOLDER_CLOUD_BAR \
-                or not valid > FOLDER_VALID_BAR or not all(
-                os.path.exists(os.path.join(dense_dir, f)) for f in
-                ("fused_depth.npy", "point_cloud.ply", "mesh.obj")):
-            fail(f"folder chain: dense artifacts missing, fewer than "
-                 f"{FOLDER_CLOUD_BAR} cloud points or the fused depth valid "
-                 f"on no more than {FOLDER_VALID_BAR} of the reference view")
+    # the card against the CPU plain path: the first batch of pairs
+    t0 = time.perf_counter()
+    src = FolderImageSource(folder)
+    pairs = [(names[i], names[i + k]) for i in range(FOLDER_VIEWS)
+             for k in range(1, FOLDER_PAIR_WINDOW + 1)
+             if i + k < FOLDER_VIEWS][:FOLDER_BATCH]
+    images = src.load_many(sorted({n for p in pairs for n in p}))
+    rc = batch_results(torch, images, pairs, dev)
+    rh = batch_results(torch, images, pairs, cpu)
+    worst, same_best, compared = 0.0, 0, 0
+    if sorted(rc) != sorted(rh):
+        fail("folder chain: the card and the CPU matched other pairs")
+    for pair in rh:
+        for meth, r in rh[pair].items():
+            nc, nh = rc[pair][meth].num_raw_matches, r.num_raw_matches
+            if rc[pair][meth].error or r.error:
+                fail(f"folder chain: method error {rc[pair][meth].error or r.error}")
+            worst = max(worst, abs(nc - nh) / max(2, 0.02 * nh))
+        scores = sorted(r.get_quality_score() for r in rh[pair].values())
+        if scores[-1] - scores[0] > FOLDER_SCORE_GAP:
+            compared += 1
+            same_best += (rc[pair].get_best_method_name()
+                          == rh[pair].get_best_method_name())
+    print(f"folder chain, first batch of {len(pairs)} pairs, card vs CPU "
+          f"plain path: same pairs; raw match counts within "
+          f"{worst:.3f} of max(2, 2%); same best method on {same_best} "
+          f"of {compared} pairs whose CPU scores differ by more than "
+          f"{FOLDER_SCORE_GAP} ({time.perf_counter() - t0:.1f} s)")
+    if worst > 1.0 or same_best != compared:
+        fail("folder chain: the card's matching disagrees with the CPU "
+             "plain path")
 
-        # the SfM stage on the CPU plain path, on the card's own matches:
-        # the card's matches must carry the CPU's SfM over the same bars,
-        # and the two must agree on the median relative rotation of the
-        # neighbouring views both registered. Which weak views register,
-        # and how far off, turns on float order on both devices (the CPU's
-        # own runs differ with its thread count, the card's with its
-        # atomics), so the views and the worst pair are compared, not held
-        # equal
-        md, info = handed.pop("sfm")
-        _, ra, _ = sfm_pipeline_run(torch, md, info, dev)
-        rot_a = consecutive_rotation_errors(ra, Rs, names)
-        print(f"folder chain SfM, the card again on the same matches: "
-              f"{ra.num_cameras} views (missing "
-              f"{sorted(set(names) - set(ra.cameras))}), {ra.num_points} "
-              f"points, {100 * float(np.mean(rot_a < FOLDER_ROT_BAR_DEG)):.1f}% "
-              f"within {FOLDER_ROT_BAR_DEG} deg (the steady run: "
-              f"{recon.num_cameras} views, {recon.num_points} points; BA's "
-              f"segment sums are float atomics on the card)")
-        del ra
-        t0 = time.perf_counter()
-        _, rh, _ = sfm_pipeline_run(torch, md, info, cpu)
-        sfm_cpu_s = time.perf_counter() - t0
-        folder_sfm_bars(rh, Rs, names, "the CPU plain path on the card's "
-                        "matches")
-        common = [n for n in names if n in recon.cameras and n in rh.cameras]
-        drot = consecutive_rotation_errors(
-            recon, [rh.cameras[n].R for n in common], common)
-        print(f"folder chain SfM, card vs CPU plain path on the card's "
-              f"matches: views only on the card "
-              f"{sorted(set(recon.cameras) - set(rh.cameras))}, only on the "
-              f"CPU {sorted(set(rh.cameras) - set(recon.cameras))}; points "
-              f"{recon.num_points} vs {rh.num_points}; relative rotations of "
-              f"neighbouring common views within "
-              f"{drot.max() if len(drot) else np.inf:.4f} deg of each other, "
-              f"median {np.median(drot) if len(drot) else np.inf:.4f} "
-              f"({sfm_cpu_s:.1f} s on the CPU)")
-        if not len(drot) or not np.median(drot) < PIPE_CPU_ROT_DEG:
-            fail(f"folder chain: the card's SfM and the CPU plain path's on "
-                 f"the same matches differ by {PIPE_CPU_ROT_DEG} deg or more "
-                 f"in the median relative rotation of neighbouring views")
-        del rh
-
-        # the dense stage on the CPU plain path, on the card's own
-        # registered views and images
-        t0 = time.perf_counter()
-        dh = pdense.run_dense_reconstruction(*handed.pop("dense"), device=cpu)
-        dense_cpu_s = time.perf_counter() - t0
-        vh = dh["depth"]["valid_fraction"]
-        ch = dh["point_cloud"]["num_points"]
-        print(f"folder chain dense, card vs CPU plain path on the same "
-              f"{dh['num_views']} views (reference {dh['reference_view']}): "
-              f"fused depth valid on {valid:.4f} vs {vh:.4f} of the reference "
-              f"view (bar: within {FOLDER_DENSE_VALID_ABS}), cloud "
-              f"{cloud.get('num_points', 0)} vs {ch} points (bar: within "
-              f"{100 * FOLDER_DENSE_CLOUD_RTOL:.0f}%), mesh "
-              f"{mesh.get('num_faces', 0)} vs {dh['mesh']['num_faces']} faces "
-              f"({dense_cpu_s:.1f} s on the CPU)")
-        if dh["reference_view"] != dense.get("reference_view") \
-                or not abs(valid - vh) <= FOLDER_DENSE_VALID_ABS \
-                or not abs(cloud.get("num_points", 0) - ch) \
-                <= FOLDER_DENSE_CLOUD_RTOL * ch:
-            fail("folder chain: the card's dense stage disagrees with the "
-                 "CPU plain path on the same views")
-        del res, recon, dh
-
-        # the card against the CPU plain path: the first batch of pairs
-        t0 = time.perf_counter()
-        src = FolderImageSource(folder)
-        pairs = [(names[i], names[i + k]) for i in range(FOLDER_VIEWS)
-                 for k in range(1, FOLDER_PAIR_WINDOW + 1)
-                 if i + k < FOLDER_VIEWS][:FOLDER_BATCH]
-        images = src.load_many(sorted({n for p in pairs for n in p}))
-        rc = batch_results(torch, images, pairs, dev)
-        rh = batch_results(torch, images, pairs, cpu)
-        worst, same_best, compared = 0.0, 0, 0
-        if sorted(rc) != sorted(rh):
-            fail("folder chain: the card and the CPU matched other pairs")
-        for pair in rh:
-            for meth, r in rh[pair].items():
-                nc, nh = rc[pair][meth].num_raw_matches, r.num_raw_matches
-                if rc[pair][meth].error or r.error:
-                    fail(f"folder chain: method error {rc[pair][meth].error or r.error}")
-                worst = max(worst, abs(nc - nh) / max(2, 0.02 * nh))
-            scores = sorted(r.get_quality_score() for r in rh[pair].values())
-            if scores[-1] - scores[0] > FOLDER_SCORE_GAP:
-                compared += 1
-                same_best += (rc[pair].get_best_method_name()
-                              == rh[pair].get_best_method_name())
-        print(f"folder chain, first batch of {len(pairs)} pairs, card vs CPU "
-              f"plain path: same pairs; raw match counts within "
-              f"{worst:.3f} of max(2, 2%); same best method on {same_best} "
-              f"of {compared} pairs whose CPU scores differ by more than "
-              f"{FOLDER_SCORE_GAP} ({time.perf_counter() - t0:.1f} s)")
-        if worst > 1.0 or same_best != compared:
-            fail("folder chain: the card's matching disagrees with the CPU "
-                 "plain path")
-
-        # ... and the views a 4-view cut registers
-        t0 = time.perf_counter()
-        cut = os.path.join(tmp, "cut")
-        os.mkdir(cut)
-        for n in names[:FOLDER_CUT]:
-            shutil.copyfile(os.path.join(folder, n), os.path.join(cut, n))
-        (res_c, _), (res_h, _) = (
-            folder_chain(torch, cut, os.path.join(tmp, f"cut_{d.type}"), d,
-                         dense=False) for d in (dev, cpu))
-        vc = sorted(res_c["reconstruction"].cameras)
-        vh = sorted(res_h["reconstruction"].cameras)
-        print(f"folder chain, {FOLDER_CUT}-view cut, card vs CPU plain path: "
-              f"views {vc} vs {vh}; points {res_c['reconstruction'].num_points} "
-              f"vs {res_h['reconstruction'].num_points} "
-              f"({time.perf_counter() - t0:.1f} s)")
-        if vc != vh:
-            fail("folder chain: the card and the CPU registered other views")
+    # ... and the views a 4-view cut registers
+    t0 = time.perf_counter()
+    cut = os.path.join(tmp, "cut")
+    os.mkdir(cut)
+    for n in names[:FOLDER_CUT]:
+        shutil.copyfile(os.path.join(folder, n), os.path.join(cut, n))
+    (res_c, _), (res_h, _) = (
+        folder_chain(torch, cut, os.path.join(tmp, f"cut_{d.type}"), d,
+                     dense=False) for d in (dev, cpu))
+    vc = sorted(res_c["reconstruction"].cameras)
+    vh = sorted(res_h["reconstruction"].cameras)
+    print(f"folder chain, {FOLDER_CUT}-view cut, card vs CPU plain path: "
+          f"views {vc} vs {vh}; points {res_c['reconstruction'].num_points} "
+          f"vs {res_h['reconstruction'].num_points} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if vc != vh:
+        fail("folder chain: the card and the CPU registered other views")
 
     # ori_desc and knn2 on the first batch's operands, as the path handed
     # them, against their plain versions with phase 2's bars
@@ -2098,6 +2145,310 @@ def run_folder(torch, card, dev):
                   "folder_max_abs_err": od["max_err"]},
         knn2={**{f"folder_{k}": v for k, v in sift.items()},
               **{f"orb_{k}": v for k, v in orb.items()}})
+
+
+def akaze_stable_scales(torch, img):
+    """Keypoint scales (6 sigma) of the AKAZE levels that evolve stably
+    from `img` (H, W) on the CPU: where the scale space of `img` moved by
+    one ulp per pixel stays within 1e-5 of its own. Past them the FED
+    cycles amplify a last ulp without bound (in the reference too; its
+    parity test compares keypoints on these levels only)."""
+    from tpu3drec_torch.ops import akaze as ak
+    x = torch.from_numpy(img)[None]
+    rng = np.random.default_rng(0)
+    nudged = torch.from_numpy(np.nextafter(img, np.where(
+        rng.random(img.shape) < 0.5, 2.0, -1.0).astype(np.float32)))[None]
+    k2 = ak._contrast_k2(x)
+    out = []
+    for (o, sub, sigma, La), (_, _, _, Lb) in zip(
+            ak.evolve_scale_space(x, k2, 4), ak.evolve_scale_space(nudged, k2, 4)):
+        if float((La - Lb).abs().max()) < 1e-5:
+            out.append(np.float32(sigma) * np.float32(2.0 ** o * 6.0))
+    return np.asarray(out, np.float32)
+
+
+def keypoint_agreement(ref, got, keep=None):
+    """Shares of one image's valid keypoints (`keep` selects) of `ref`
+    found in `got` at the same scale within 1e-3 px, and of the bits of
+    the shared ones that agree: (found, bits, n_ref, n_got)."""
+    def host(f):
+        return {k: getattr(f, k).cpu().numpy() for k in
+                ("xy", "scale", "desc", "mask")}
+    r, g = host(ref), host(got)
+    rv = np.nonzero(r["mask"] & (True if keep is None else keep(r)))[0]
+    gv = np.nonzero(g["mask"] & (True if keep is None else keep(g)))[0]
+    if not len(rv) or not len(gv):
+        return 0.0, 0.0, len(rv), len(gv)
+    d = np.abs(r["xy"][rv][:, None] - g["xy"][gv][None]).max(-1)
+    d = np.where(np.isclose(r["scale"][rv][:, None], g["scale"][gv][None],
+                            rtol=1e-6), d, np.inf)
+    j = d.argmin(1)
+    ok = d[np.arange(len(rv)), j] <= 1e-3
+    bits = float((r["desc"][rv[ok]] == g["desc"][gv[j[ok]]]).mean()) \
+        if ok.any() else 0.0
+    return float(ok.mean()), bits, len(rv), len(gv)
+
+
+def sift_agreement(ref, got):
+    """tests/test_torch_detectors.py's SIFT bars between two Features of
+    one image: the share of `got`'s valid keypoints within 1e-4 px of one
+    of `ref`'s, the counts, the largest angle difference and the smallest
+    descriptor cosine of the matched ones."""
+    r = {k: getattr(ref, k).cpu().numpy() for k in ("xy", "angle", "desc", "mask")}
+    g = {k: getattr(got, k).cpu().numpy() for k in ("xy", "angle", "desc", "mask")}
+    a, b = np.nonzero(g["mask"])[0], np.nonzero(r["mask"])[0]
+    d = np.linalg.norm(g["xy"][a][:, None] - r["xy"][b][None], axis=-1)
+    j = d.argmin(1)
+    m = d[np.arange(len(a)), j] < 1e-4
+    ia, ib = a[m], b[j[m]]
+    da = np.abs(np.angle(np.exp(1j * (g["angle"][ia].astype(np.float64)
+                                      - r["angle"][ib]))))
+    cos = (g["desc"][ia] * r["desc"][ib]).sum(1) / np.maximum(
+        np.linalg.norm(g["desc"][ia], axis=1)
+        * np.linalg.norm(r["desc"][ib], axis=1), 1e-12)
+    return dict(found=float(m.mean()) if len(a) else 0.0, n_got=len(a),
+                n_ref=len(b), max_angle=float(da.max()) if len(da) else 0.0,
+                min_cos=float(cos.min()) if len(cos) else 0.0)
+
+
+def run_folder_accurate(torch, card, dev, tmp, names, Rs):
+    """Phase 8: the folder chain at the CLI `auto --preset accurate
+    --dense` defaults (SIFT + AKAZE + BRISK at 3,000 features) on phase
+    7's folder: launches (knn2 by method), rates, bars, each detector's
+    seconds and a profiled AKAZE call; the first batch against the CPU
+    plain path (matching, and AKAZE's and BRISK's keypoints and bits);
+    Harris and GoodFeatures pairs and SIFT's gather sampler and upscale,
+    card against CPU; `ori_desc` at the batch's SIFT octaves and `knn2`
+    at its AKAZE and BRISK operands against their plain versions."""
+    import tpu3drec_torch as tv
+    from tpu3drec_torch.api import _detector_params, _get_detector_registry
+    from tpu3drec_torch.core.config import create_config_from_preset
+    from tpu3drec_torch.io.images import FolderImageSource
+    from tpu3drec_torch.ops import match as mt
+    from tpu3drec_torch.ops import pallas_match as pm
+    from tpu3drec_torch.ops import pallas_sample as ps
+    from tpu3drec_torch.ops import pallas_sgm as psg
+    from tpu3drec_torch.ops.sift import N_LAYERS, detect_sift_features
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    folder = os.path.join(tmp, "imgs")
+    fill, cap = folder_fill(torch, folder, names, dev, ACC_PRESET)
+    print(f"accurate chain folder: keypoints per view of {cap} slots: "
+          + "; ".join(f"{m} median {int(np.median(v))} ({100 * np.median(v) / cap:.1f}%), "
+                      f"min {int(v.min())}, max {int(v.max())}"
+                      for m, v in fill.items()))
+    for m, v in fill.items():
+        if v.min() == 0:
+            fail(f"accurate chain: {m} finds no keypoint on a view")
+
+    calls, knn2_ops, octaves, restore = spy_kernel_inputs(mt, ps)
+    try:
+        ps.ori_desc.launches = pm.knn2_raw.launches = 0
+        psg.sgm_aggregate_batch.launches = 0
+        res, cold = folder_chain(torch, folder, os.path.join(tmp, "acc_cold"),
+                                 dev, preset=ACC_PRESET)
+        launches = {"ori_desc": ps.ori_desc.launches,
+                    "knn2": pm.knn2_raw.launches,
+                    "sgm": psg.sgm_aggregate_batch.launches}
+    finally:
+        restore()
+    by_method = {ACC_DEPTH_METHOD.get(d, d): n for d, n in sorted(calls.items())}
+    print(f"launches in the accurate chain's cold run: {launches}; knn2 "
+          f"calls by method (metric): "
+          + ", ".join(f"{k} ({ACC_METRIC[k]}) {v}" if k in ACC_METRIC
+                      else f"depth {k} {v}" for k, v in by_method.items()))
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"the accurate chain never launched the {name} kernel")
+    if set(by_method) != set(ACC_METRIC):
+        fail("the accurate chain did not run knn2 on each of SIFT's, "
+             "AKAZE's and BRISK's descriptors")
+    folder_checks(res, "accurate, cold")
+
+    res, steady = folder_chain(torch, folder, os.path.join(tmp, "acc_steady"),
+                               dev, preset=ACC_PRESET)
+    m = folder_checks(res, "accurate, steady")
+    recon = res["reconstruction"]
+    n_pairs = m["stats"]["total_pairs"]
+    n_batches = -(-n_pairs // FOLDER_BATCH)
+    t = res["timings_s"]
+    dense = res.get("dense") or {}
+    print(f"accurate chain: {FOLDER_VIEWS / steady:.4f} images/s end to end "
+          f"({steady:.2f} s steady; cold {cold:.2f} s, "
+          f"{FOLDER_VIEWS / cold:.4f} images/s); matching "
+          f"{n_pairs / t['matching']:.3f} pairs/s; seconds: matching "
+          f"{t['matching']:.3f}, SfM {t['sfm']:.3f}, dense "
+          f"{t.get('dense', float('nan')):.3f}; on {card}")
+    print(f"accurate chain matching: {n_pairs} pairs in {n_batches} batches, "
+          f"dispatch_count {m['dispatch_count']}; per method: "
+          + "; ".join(f"{k} {v['pairs']} pairs, mean raw matches "
+                      f"{v['mean_raw_matches']:.1f}, mean quality "
+                      f"{v['mean_quality']:.4f}"
+                      for k, v in m["methods"].items()))
+    print(f"accurate chain dense: "
+          f"{(dense.get('point_cloud') or {}).get('num_points', 0)} cloud "
+          f"points, {(dense.get('mesh') or {}).get('num_faces', 0)} mesh "
+          f"faces (reported, not held)")
+    if m["dispatch_count"] != 2 * len(ACC_METRIC) * n_batches:
+        fail(f"accurate chain: {m['dispatch_count']} engine calls, not "
+             f"2 x {len(ACC_METRIC)} methods x {n_batches} batches")
+    if set(m["methods"]) != set(ACC_METRIC) or any(
+            v["mean_raw_matches"] < ACC_RAW_MATCHES_BAR
+            for v in m["methods"].values()):
+        fail(f"accurate chain: a method with under {ACC_RAW_MATCHES_BAR} "
+             f"mean raw matches a pair, or a method missing")
+    rot = folder_sfm_bars(recon, Rs, names, "accurate, the card",
+                          share_bar=ACC_ROT_SHARE_BAR)
+    reg = [n for n in names if n in recon.cameras]
+    bends = [f"{a}->{b} {r:.2f}" for a, b, r in zip(reg, reg[1:], rot)
+             if r >= FOLDER_ROT_BAR_DEG]
+    print(f"accurate chain: neighbouring registered views off by "
+          f"{FOLDER_ROT_BAR_DEG} deg or more on the card: "
+          f"{', '.join(bends) or 'none'}")
+    del res, recon
+
+    # the card against the CPU plain path on the first batch of pairs
+    t0 = time.perf_counter()
+    src = FolderImageSource(folder)
+    pairs = [(names[i], names[i + k]) for i in range(FOLDER_VIEWS)
+             for k in range(1, FOLDER_PAIR_WINDOW + 1)
+             if i + k < FOLDER_VIEWS][:FOLDER_BATCH]
+    images = src.load_many(sorted({n for p in pairs for n in p}))
+    rc = batch_results(torch, images, pairs, dev, ACC_PRESET)
+    rh = batch_results(torch, images, pairs, cpu, ACC_PRESET)
+    if sorted(rc) != sorted(rh):
+        fail("accurate chain: the card and the CPU matched other pairs")
+    worst, same_best, compared = 0.0, 0, 0
+    for pair in rh:
+        for meth, r in rh[pair].items():
+            if rc[pair][meth].error or r.error:
+                fail(f"accurate chain: method error "
+                     f"{rc[pair][meth].error or r.error}")
+            nc, nh = rc[pair][meth].num_raw_matches, r.num_raw_matches
+            worst = max(worst, abs(nc - nh) / max(2, 0.02 * nh))
+        scores = sorted(r.get_quality_score() for r in rh[pair].values())
+        if scores[-1] - scores[0] > FOLDER_SCORE_GAP:
+            compared += 1
+            same_best += (rc[pair].get_best_method_name()
+                          == rh[pair].get_best_method_name())
+    # AKAZE's and BRISK's keypoints and bits per image, by the CPU tests'
+    # shares (AKAZE on the levels that evolve stably)
+    feats = {}
+    for pair in pairs:
+        for meth in ("AKAZE", "BRISK"):
+            for side, name in ((1, pair[0]), (2, pair[1])):
+                feats[(meth, name)] = tuple(
+                    getattr(r[pair][meth], f"features{side}") for r in (rh, rc))
+    scales = akaze_stable_scales(torch, images[pairs[0][0]])
+    low = {"AKAZE": (1.0, 1.0), "BRISK": (1.0, 1.0)}
+    for (meth, name), (fh, fc) in feats.items():
+        keep = None
+        if meth == "AKAZE":
+            def keep(f):
+                return np.isclose(f["scale"][:, None], scales[None],
+                                  rtol=1e-6).any(1)
+        found, bits, _, _ = keypoint_agreement(fh, fc, keep)
+        low[meth] = (min(low[meth][0], found), min(low[meth][1], bits))
+    print(f"accurate chain, first batch of {len(pairs)} pairs, card vs CPU "
+          f"plain path: same pairs; raw match counts within {worst:.3f} of "
+          f"max(2, 2%); same best method on {same_best} of {compared} pairs "
+          f"whose CPU scores differ by more than {FOLDER_SCORE_GAP}; lowest "
+          f"share per image of the CPU's valid keypoints found on the card "
+          f"and of their bits agreeing: AKAZE {low['AKAZE'][0]:.4f} / "
+          f"{low['AKAZE'][1]:.4f} (on its {len(scales)} stable levels), "
+          f"BRISK {low['BRISK'][0]:.4f} / {low['BRISK'][1]:.4f} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if worst > 1.0 or same_best != compared:
+        fail("accurate chain: the card's matching disagrees with the CPU "
+             "plain path")
+    if min(v for pair in low.values() for v in pair) < ACC_SHARE:
+        fail(f"accurate chain: AKAZE's or BRISK's keypoints or bits on the "
+             f"card agree with the CPU's on under {ACC_SHARE:.0%}")
+
+    # each detector's seconds on the first batch's images, and one
+    # profiled AKAZE call
+    cfg = create_config_from_preset(ACC_PRESET)
+    stack = torch.stack([tv.prepare_image(images[n], dev) for n in sorted(images)])
+    det_s = {}
+    for meth in cfg["methods"]:
+        det = _get_detector_registry()[meth]
+        params = _detector_params(meth, cfg, None)
+        det(stack, **params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det(stack, **params)
+        torch.cuda.synchronize()
+        det_s[meth] = time.perf_counter() - t0
+    print(f"accurate chain detection, one batched call on the first batch's "
+          f"{stack.shape[0]} images of 640x480 (host clock, warm): "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in det_s.items()))
+    akaze = _get_detector_registry()["AKAZE"]
+    akaze_params = _detector_params("AKAZE", cfg, None)
+    print("AKAZE detection, profiled:")
+    profile_call(torch, lambda: akaze(stack, **akaze_params), "akaze.")
+
+    # Harris and GoodFeatures pairs, and SIFT's gather sampler and
+    # upscale, on the card against the CPU plain path
+    t0 = time.perf_counter()
+    v0, v1 = images[pairs[0][0]], images[pairs[0][1]]
+    counts = {}
+    for meth in ("Harris", "GoodFeatures"):
+        rcm = tv.match_images(v0, v1, method=meth, device=dev)
+        rhm = tv.match_images(v0, v1, method=meth, device=cpu)
+        counts[meth] = (rcm.num_raw_matches, rhm.num_raw_matches)
+    sift = {}
+    for label, kw in (("sampler='xla'", {"sampler": "xla"}),
+                      ("upscale=True", {"upscale": True})):
+        fc = detect_sift_features(tv.prepare_image(v0, dev),
+                                  max_features=cfg["max_features"], **kw)
+        fh = detect_sift_features(tv.prepare_image(v0, cpu),
+                                  max_features=cfg["max_features"], **kw)
+        sift[label] = sift_agreement(fh, fc)
+    print(f"Harris / GoodFeatures pairs, card vs CPU plain path, raw matches: "
+          + ", ".join(f"{k} {a} vs {b}" for k, (a, b) in counts.items())
+          + "; SIFT on one view, card vs CPU: "
+          + "; ".join(f"{k}: {v['n_got']} vs {v['n_ref']} keypoints, "
+                      f"{100 * v['found']:.2f}% within 1e-4 px, angles within "
+                      f"{v['max_angle']:.2e} rad, descriptor cosine >= "
+                      f"{v['min_cos']:.6f}" for k, v in sift.items())
+          + f" ({time.perf_counter() - t0:.1f} s)")
+    if any(abs(a - b) > max(2, 0.02 * b) or b == 0 for a, b in counts.values()):
+        fail("Harris / GoodFeatures: the card's raw matches disagree with "
+             "the CPU's")
+    for k, v in sift.items():
+        if v["found"] < 0.99 or abs(v["n_got"] - v["n_ref"]) > 0.01 * v["n_ref"] \
+                or v["max_angle"] >= 1e-3 or v["min_cos"] <= 0.9999:
+            fail(f"SIFT {k}: the card disagrees with the CPU plain path")
+
+    # the kernels at this path's operands
+    L, h, w = octaves[0].dxs.shape
+    od = ori_desc_octaves(torch, ps, octaves, profile=False)
+    print(f"ori_desc vs plain at the accurate chain's first batch ("
+          f"{L // (N_LAYERS + 3)} images of {w}x{h}, {len(octaves)} octaves, "
+          f"{sum(o.meta.shape[0] for o in octaves)} slots): {od['n_valid']} "
+          f"valid; {od['n_bad']} outside angle<1e-3 rad & cos>0.9999 "
+          f"({100 * od['frac_bad']:.3f}%, bar <= 0.5%); max |desc err| on "
+          f"the rest {od['max_err']:.3e}; two launches bit-identical; "
+          f"{od['ms']:.4f} ms per detection call (CUDA events), plain "
+          f"{od['plain_ms']:.3f} ms, bound {od['bound_ms']:.4f} ms "
+          f"({od['bound_by']})")
+    if od["n_valid"] == 0 or od["frac_bad"] > 0.005:
+        fail("ori_desc disagrees with its plain version at the accurate "
+             "chain's first batch")
+    akaze_k = folder_knn2(torch, pm, knn2_ops[486],
+                          "the accurate chain's first batch of AKAZE operands")
+    brisk_k = folder_knn2(torch, pm, knn2_ops[512],
+                          "the accurate chain's first batch of BRISK operands")
+    print(f"accurate chain phase on {card}: {time.perf_counter() - t_phase:.1f} s")
+    return dict(
+        launches=launches,
+        ori_desc={"accurate_ms": od["ms"], "accurate_plain_ms": od["plain_ms"],
+                  "accurate_bound_ms": od["bound_ms"],
+                  "accurate_bound_by": od["bound_by"],
+                  "accurate_max_abs_err": od["max_err"]},
+        knn2={**{f"akaze_{k}": v for k, v in akaze_k.items()},
+              **{f"brisk_{k}": v for k, v in brisk_k.items()}})
 
 
 def main():
@@ -2234,14 +2585,24 @@ def main():
     run_pipeline(torch, card, dev)
     phase_s["6 sfm pipeline"] = time.perf_counter() - t0
 
-    # ---- 7. the folder chain
-    t0 = time.perf_counter()
-    folder = run_folder(torch, card, dev)
-    phase_s["7 folder chain"] = time.perf_counter() - t0
-    fields["knn2"].update(folder["knn2"])
-    fields["ori_desc"].update(folder["ori_desc"])
+    # ---- 7-8. the folder chain at the balanced and the accurate preset,
+    # on one rendered folder
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_folder_") as tmp:
+        os.mkdir(os.path.join(tmp, "imgs"))
+        names, Rs = render_splat_views(os.path.join(tmp, "imgs"),
+                                       FOLDER_VIEWS, FOLDER_POINTS)
+        t0 = time.perf_counter()
+        folder = run_folder(torch, card, dev, tmp, names, Rs)
+        phase_s["7 folder chain"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        accurate = run_folder_accurate(torch, card, dev, tmp, names, Rs)
+        phase_s["8 accurate chain"] = time.perf_counter() - t0
+    for f in (folder, accurate):
+        fields["knn2"].update(f["knn2"])
+        fields["ori_desc"].update(f["ori_desc"])
 
-    # ---- 8. the kernels line
+    # ---- 9. the kernels line
     sources = {
         "ori_desc": ("tpu3drec_torch/csrc/ori_desc.cu",
                      "tpu3drec/ops/pallas_sample.py:541"),
@@ -2262,10 +2623,11 @@ def main():
                         "launches_by_path": {
                             "pair_step" if name != "sgm" else "dense":
                                 launches[name],
-                            "folder": folder["launches"][name]},
+                            "folder": folder["launches"][name],
+                            "folder_accurate": accurate["launches"][name]},
                         **{k: v for k, v in f.items() if k.startswith(
                             ("full_", "library_bf16", "kernel_ms", "orb_",
-                             "folder_"))}})
+                             "folder_", "akaze_", "brisk_", "accurate_"))}})
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in phase_s.items()))
     print(f"chip_smoke wall time: {time.perf_counter() - t_main:.1f} s "

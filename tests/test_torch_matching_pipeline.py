@@ -229,6 +229,79 @@ def test_per_method_raw_counts_and_best_method_like_jax(runs):
                 == je[pair].get_best_method_name(), pair
 
 
+@pytest.fixture(scope="module")
+def accurate_runs(tmp_path_factory):
+    """Each package's batched engine on the folder's pairs at the
+    `accurate` preset (SIFT + AKAZE + BRISK at 3,000 features), and the
+    port's folder run."""
+    tmp = tmp_path_factory.mktemp("acc")
+    folder = make_folder(tmp)
+    cfg = {"filtering": {"use_adaptive_filtering": False}}
+    pipe = tcreate("accurate", cfg, device="cpu")
+    summary = pipe.match_folder(folder, tmp / "torch", collect_results=True)
+    pairs = sorted(summary["matches_data"])
+    out = {"summary": summary, "pipe": pipe, "pairs": pairs, "folder": folder}
+    for name, create, src_mod, kw in (
+            ("jax", jcreate, jimg, {}), ("torch", tcreate, timg,
+                                         {"device": "cpu"})):
+        images = src_mod.FolderImageSource(folder).load_many(
+            sorted({n for p in pairs for n in p}))
+        out[name] = create("accurate", cfg, **kw)._match_pairs_batched(
+            images, pairs)
+    return out
+
+
+def test_accurate_preset_counts_and_best_method_like_jax(accurate_runs):
+    je, te = accurate_runs["jax"], accurate_runs["torch"]
+    s = accurate_runs["summary"]
+    assert s["stats"]["completed"] == 4 and s["stats"]["failed"] == 0
+    assert s["stats"]["engine_fallbacks"] == 0
+    assert s["stats"]["method_errors"] == 0
+    # 1 batch x 3 methods x (detect + match)
+    assert accurate_runs["pipe"].dispatch_count == 6
+    assert set(s["methods"]) == {"SIFT", "AKAZE", "BRISK"}
+    assert sorted(te) == sorted(je)
+    for pair in je:
+        for method in ("SIFT", "AKAZE", "BRISK"):
+            a, b = je[pair][method], te[pair][method]
+            assert b.error is None
+            assert abs(b.num_raw_matches - a.num_raw_matches) \
+                <= count_tol(a.num_raw_matches), (pair, method,
+                                                  b.num_raw_matches,
+                                                  a.num_raw_matches)
+            assert b.num_raw_matches > 10
+        assert te[pair]["AKAZE"].features1.desc.shape[-1] == 486
+        assert te[pair]["BRISK"].features1.desc.shape[-1] == 512
+        assert te[pair]["AKAZE"].matcher_used == "knn-batched[hamming_pm1]"
+        scores = sorted(r.get_quality_score() for r in je[pair].values())
+        if scores[-1] - scores[0] > SCORE_GAP:
+            assert te[pair].get_best_method_name() \
+                == je[pair].get_best_method_name(), pair
+
+
+def test_per_pair_match_takes_binary_descriptors_like_the_engine(
+        accurate_runs):
+    """The per-pair path matches AKAZE's 486-wide and BRISK's 512-wide
+    +-1 descriptors as the batched engine does: raw counts within
+    max(2, 2%). The images are the engine's own decoded arrays (a folder
+    batch decodes natively, one image through PIL, an ulp apart, and on
+    this image's flat rectangles BRISK's bits compare equal intensities,
+    so an ulp flips them)."""
+    pair = accurate_runs["pairs"][0]
+    images = timg.FolderImageSource(accurate_runs["folder"]).load_many(
+        sorted({n for p in accurate_runs["pairs"] for n in p}))
+    pipe = tcreate("accurate", {"filtering": {"use_adaptive_filtering": False}},
+                   device="cpu")
+    res = pipe.match(images[pair[0]], images[pair[1]])
+    for method in ("SIFT", "AKAZE", "BRISK"):
+        got = res[method].num_raw_matches
+        ref = accurate_runs["torch"][pair][method].num_raw_matches
+        assert res[method].error is None
+        assert res[method].features1.desc.shape[-1] \
+            == {"SIFT": 128, "AKAZE": 486, "BRISK": 512}[method]
+        assert abs(got - ref) <= count_tol(ref), (method, got, ref)
+
+
 def test_pickles_read_both_ways(runs):
     for writer in ("jax", "torch"):
         path = str(runs[writer]["dir"] / "results_batch_000.pkl")
@@ -359,29 +432,38 @@ def test_engine_fallback_is_counted_and_bad_inputs_degrade(tmp_path, monkeypatch
     assert bad["ORB"].error and bad["ORB"].num_matches == 0
 
 
-def test_unported_detectors_are_never_dropped_silently():
-    with pytest.raises(NotImplementedError, match="Queue 1 #4"):
-        tv.create_pipeline("accurate", device="cpu")
+def test_unported_detectors_are_never_dropped_silently(monkeypatch):
+    # every detector that needs no weights runs, in the presets too
+    pipe = tv.create_pipeline("accurate", device="cpu")
+    assert pipe.methods == ["SIFT", "AKAZE", "BRISK"]
+    img = make_image()
     for m in ("Harris", "GoodFeatures", "GFTT", "AKAZE", "BRISK"):
-        with pytest.raises(NotImplementedError, match="Queue 1 #4"):
-            tv.detect_features(np.zeros((32, 32), np.float32), m,
-                               device="cpu")
+        f = tv.detect_features(img, m, max_features=128, device="cpu")
+        assert int(f.mask.sum()) > 0, m
     from tpu3drec_torch.multi_method import create_multi_detector
-    with pytest.raises(NotImplementedError, match="Queue 1 #4"):
-        create_multi_detector(("SIFT", "AKAZE"), device="cpu")
     from tpu3drec.api import _get_detector_registry as jreg
     from tpu3drec_torch.api import _get_detector_registry as treg
-    # deep detectors without weights are unavailable in both packages
+    # deep detectors without weights are unavailable in both packages:
+    # skipped and listed, never dropped silently
     assert sorted(set(jreg()) & {"SuperPoint", "DISK", "ALIKED"}) \
         == sorted(set(treg()) & {"SuperPoint", "DISK", "ALIKED"}) == []
-    det = create_multi_detector(("SIFT", "ORB", "SuperPoint"),
+    det = create_multi_detector(("SIFT", "AKAZE", "SuperPoint"),
                                 max_features=128, device="cpu")
-    assert det.methods == ["SIFT", "ORB"] and det.skipped == ["SuperPoint"]
-    img = make_image()
+    assert det.methods == ["SIFT", "AKAZE"] and det.skipped == ["SuperPoint"]
     got = det.detect_all(img)
-    assert set(got) == {"SIFT", "ORB"} and len(got["ORB"]) > 50
+    assert set(got) == {"SIFT", "AKAZE"} and len(got["AKAZE"]) > 50
+    robust = tv.create_pipeline("robust", device="cpu")
+    assert robust.methods == ["SIFT", "AKAZE"]
     with pytest.raises(ValueError, match="no available detectors"):
         tv.create_pipeline("deep_learning", device="cpu")
+    # with converted weights on disk, a deep detector is named and refused
+    import tpu3drec_torch.models as tmodels
+    monkeypatch.setattr(tmodels, "weights_available", lambda model=None: True)
+    for m in ("SuperPoint", "DISK", "ALIKED"):
+        with pytest.raises(NotImplementedError, match="Queue 1 #6"):
+            tv.detect_features(img, m, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
+        create_multi_detector(("SIFT", "DISK"), device="cpu")
 
 
 def make_image():

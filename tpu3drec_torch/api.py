@@ -6,12 +6,13 @@ Port of `tpu3drec/api.py`: `prepare_image`, `detect_features`,
 and `reconstruct_folder`. These entry points take host images or a
 folder and a `device` (None means CUDA; see `core.device`).
 
-The detector registry holds the ported detectors, SIFT and ORB. A known
-detector the port lacks is never dropped silently: asking for Harris,
-GoodFeatures (alias GFTT), AKAZE or BRISK raises `NotImplementedError`
-naming ROADMAP Queue 1 #4. The deep detectors follow the reference's rule:
-without converted weights on disk they are unavailable (not registered),
-and with weights present they raise `NotImplementedError` naming #6.
+The detector registry holds every detector of the reference that needs
+no weights: SIFT, Harris, GoodFeatures (alias GFTT), ORB, AKAZE and BRISK.
+Each takes one `(H, W)` image or a `(B, H, W)` batch and runs on the
+tensor's device. The deep detectors follow the reference's rule: without
+converted weights on disk they are unavailable (not registered), and with
+weights present they raise `NotImplementedError` naming ROADMAP Queue 1
+#6, which ports them.
 """
 
 from __future__ import annotations
@@ -32,15 +33,36 @@ from tpu3drec_torch.ops import image as imops
 from tpu3drec_torch.ops.geometry import (
     find_homography, reprojection_error_homography,
 )
+from tpu3drec_torch.ops.akaze import detect_akaze_features
+from tpu3drec_torch.ops.brisk import detect_brisk_features
+from tpu3drec_torch.ops.harris import detect_harris_features
 from tpu3drec_torch.ops.match import auto_select_matcher, match_features
 from tpu3drec_torch.ops.orb import detect_orb_features
 from tpu3drec_torch.ops.sift import detect_sift_features
 from tpu3drec_torch.pipelines.matching import create_pipeline
 
+
+def _harris(img, **kw):
+    kw.pop("use_harris", None)
+    return detect_harris_features(img, use_harris=True, method="Harris", **kw)
+
+
+def _gftt(img, **kw):
+    kw.pop("use_harris", None)
+    return detect_harris_features(img, use_harris=False,
+                                  method="GoodFeatures", **kw)
+
+
 # name -> detect fn ((H, W) or (B, H, W) float32 tensor, **params) -> Features
-_DETECTORS = {"SIFT": detect_sift_features, "ORB": detect_orb_features}
-_ALIASES = {"GFTT": "GoodFeatures"}
-_NOT_PORTED = ("Harris", "GoodFeatures", "AKAZE", "BRISK")
+_DETECTORS = {
+    "SIFT": detect_sift_features,
+    "Harris": _harris,
+    "GoodFeatures": _gftt,
+    "GFTT": _gftt,          # the reference's alias
+    "ORB": detect_orb_features,
+    "AKAZE": detect_akaze_features,
+    "BRISK": detect_brisk_features,
+}
 # deep detector -> its weights file stem
 _DEEP = {"SuperPoint": "superpoint", "DISK": "disk", "ALIKED": "aliked"}
 
@@ -51,16 +73,12 @@ def _get_detector_registry() -> Dict[str, Any]:
 
 
 def check_detector(method: str) -> None:
-    """Raise `NotImplementedError` for a known detector that the port does
-    not run yet; return for any other name."""
-    name = _ALIASES.get(method, method)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"tpu3drec_torch: the {method} detector is not ported yet "
-            f"(ROADMAP Queue 1 #4)")
-    if name in _DEEP:
+    """Raise `NotImplementedError` for a deep detector whose converted
+    weights are on disk (the port does not run the deep models yet);
+    return for any other name."""
+    if method in _DEEP:
         from tpu3drec_torch.models import weights_available
-        if weights_available(_DEEP[name]):
+        if weights_available(_DEEP[method]):
             raise NotImplementedError(
                 f"tpu3drec_torch: converted {method} weights are on disk, "
                 f"but the deep detectors are not ported yet (ROADMAP "

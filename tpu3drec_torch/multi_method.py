@@ -3,10 +3,11 @@
 Port of `tpu3drec/multi_method.py`: runs N configured detectors over one
 image -> {method: Features}, with per-method params. As the reference, a
 method the registry does not hold (a deep detector without weights) is
-skipped and listed in `skipped`; a known detector that the port does not
-run yet raises `NotImplementedError` (see `api.check_detector`). A method
-that fails on an image yields empty Features, except on `RuntimeError`,
-a kernel or CUDA fault, which propagates.
+skipped and listed in `skipped`; a deep detector whose weights are on
+disk raises `NotImplementedError` until the deep models are ported (see
+`api.check_detector`). A method that fails on an image yields empty
+Features, except on `RuntimeError`, a kernel or CUDA fault, which
+propagates.
 """
 
 from __future__ import annotations

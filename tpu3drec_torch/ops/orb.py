@@ -32,9 +32,10 @@ import torch.nn.functional as F
 from tpu3drec_torch.core.types import DescriptorKind, Features
 from tpu3drec_torch.ops.fast import fast_score_map
 from tpu3drec_torch.ops.harris import (
-    harris_response, nms_2d, select_top_k, topk_stable,
+    harris_response, merge_top_k, nms_2d, select_top_k,
 )
 from tpu3drec_torch.ops.image import gaussian_blur, resize
+from tpu3drec_torch.ops.sift import _bilinear_many
 
 DESC_BITS = 256
 PATCH_R = 15  # orientation / descriptor patch radius (cv2: 31x31 patch)
@@ -80,28 +81,6 @@ def _moment_maps(img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     w = torch.from_numpy(_MOMENT_KERNELS).to(img.device)
     y = F.conv2d(img[:, None], w, padding=PATCH_R)
     return y[:, 0], y[:, 1]
-
-
-def _bilinear_many(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
-    """Bilinear samples of `(B, H, W)` at `(B, ...)` coordinates, clamped
-    inside the image as the reference clamps them (to size - 1.001)."""
-    B, h, w = img.shape
-    flat = img.reshape(B, h * w)
-    x = torch.clamp(x, 0.0, w - 1.001)
-    y = torch.clamp(y, 0.0, h - 1.001)
-    x0 = torch.floor(x)
-    y0 = torch.floor(y)
-    fx = x - x0
-    fy = y - y0
-    i00 = (y0.to(torch.int64) * w + x0.to(torch.int64)).reshape(B, -1)
-
-    def take(i):
-        return flat.gather(1, i).reshape(x.shape)
-
-    v00, v01 = take(i00), take(i00 + 1)
-    v10, v11 = take(i00 + w), take(i00 + w + 1)
-    return ((1 - fy) * ((1 - fx) * v00 + fx * v01)
-            + fy * ((1 - fx) * v10 + fx * v11))
 
 
 def _describe(img: torch.Tensor, xy: torch.Tensor, angle: torch.Tensor,
@@ -180,29 +159,9 @@ def detect_and_compute(imgs: torch.Tensor, max_features: int = 2048,
             desc=desc,
             mask=mask,
         ))
-    merged = {k: torch.cat([p[k] for p in parts], dim=1) for k in parts[0]}
-    score_all = torch.where(merged["mask"], merged["response"],
-                            torch.full_like(merged["response"], -math.inf))
     # per-level budgets can sum below max_features (int truncation, tiny
-    # images): clamp the top-K and pad back to the capacity
-    k_top = min(max_features, score_all.shape[1])
-    top, order = topk_stable(score_all, k_top)
-    out = {}
-    for key, v in merged.items():
-        ix = order.reshape(order.shape + (1,) * (v.ndim - 2))
-        out[key] = v.gather(1, ix.expand(order.shape + v.shape[2:]))
-    out["mask"] = out["mask"] & (top > -math.inf)
-    if k_top < max_features:
-        pad = max_features - k_top
-        out = {key: torch.cat([v, v.new_zeros((B, pad) + v.shape[2:])], dim=1)
-               for key, v in out.items()}
-    out["response"] = torch.where(out["mask"], out["response"],
-                                  torch.zeros_like(out["response"]))
-    res = (out["xy"], out["response"], out["scale"], out["angle"],
-           out["desc"], out["mask"])
-    if single:
-        res = tuple(t[0] for t in res)
-    return res
+    # images): the merge pads back to the capacity
+    return merge_top_k(parts, max_features, single)
 
 
 def detect_orb_features(img: torch.Tensor, max_features: int = 2048,

@@ -1,11 +1,20 @@
 """SIFT: DoG scale space, 3-D extrema, subpixel refinement, then
-orientation and descriptor through the `ori_desc` kernel.
+orientation and descriptor by one of two samplers.
 
-Port of `tpu3drec/ops/sift.py:detect_and_compute` with the window sampler
-(`sampler="pallas"` there). Every stage works on a batch of same-size
+Port of `tpu3drec/ops/sift.py`. Every stage works on a batch of same-size
 images `(B, H, W)`, so the `ori_desc` kernel launches once per octave for
 the whole batch. Output is the reference's fixed-capacity bundle
 `(xy, response, scale, angle, desc, mask)`, each with a leading `B`.
+
+`sampler=` picks how orientation and descriptor are sampled, with the
+reference's names: "pallas" (and "auto") runs the window route, the
+`ori_desc` kernel on the card and its plain version on the CPU; "xla"
+runs the reference's gather sampler (bilinear samples of the bf16
+gradient stack on 9x9 and 12x12 grids, histograms as one-hot products)
+on any device. `upscale=True` doubles the image first (JAX's linear
+resize) and halves coordinates and scales on the way out, as the
+reference does. `describe_at_points` gives SIFT orientations and
+descriptors at fixed points, for the Harris and GFTT detectors.
 """
 
 from __future__ import annotations
@@ -20,7 +29,7 @@ import torch.nn.functional as F
 
 from tpu3drec_torch.core.types import DescriptorKind, Features
 from tpu3drec_torch.ops.image import (
-    band_matrix, downsample2, gaussian_blur_matmul,
+    band_matrix, downsample2, gaussian_blur_matmul, resize,
 )
 
 # ---------------------------------------------------------------------
@@ -36,6 +45,8 @@ DESC_D = 4              # descriptor spatial bins
 DESC_B = 8              # orientation bins
 DESC_SCL_FCTR = 3.0     # hist width = 3 * scale
 DESC_MAG_THR = 0.2
+ORI_SAMPLES = 9         # orientation-patch side of the gather sampler
+DESC_SAMPLES = 12       # descriptor-patch side of the gather sampler
 
 # cv2-compatible orientation-bin direction: OpenCV's descriptor bins run
 # the opposite way around the circle from this y-down layout, so the
@@ -54,6 +65,177 @@ _STENCIL = [(0, 0, 0),
 
 def num_octaves(h: int, w: int, min_size: int = 16) -> int:
     return max(1, int(math.floor(math.log2(min(h, w) / min_size))) + 1)
+
+
+def _patch_offsets_np(n: int) -> np.ndarray:
+    """(n*n, 2) float32 (x, y) cell centres of an n x n grid over
+    [-0.5, 0.5)^2, x fastest."""
+    lin = (np.arange(n, dtype=np.float32) + np.float32(0.5)) / np.float32(n) \
+        - np.float32(0.5)
+    gx, gy = np.meshgrid(lin, lin, indexing="xy")
+    return np.stack([gx.ravel(), gy.ravel()], axis=1)
+
+
+def _patch_offsets(n: int, device=None) -> torch.Tensor:
+    return torch.from_numpy(_patch_offsets_np(n)).to(device)
+
+
+def _static_desc_bins():
+    """The gather sampler's keypoint-independent descriptor constants:
+    the 12x12 grid's x and y offsets (in scale units) and its trilinear
+    row/column one-hots weighted by the Gaussian window, (144, 16);
+    float32, built as the reference builds them."""
+    P = DESC_SAMPLES
+    offs = _patch_offsets_np(P)
+    win = DESC_SCL_FCTR * (DESC_D + 1)
+    ox = offs[:, 0] * win
+    oy = offs[:, 1] * win
+    wgt = np.exp(-(ox ** 2 + oy ** 2)
+                 / (2 * (0.5 * DESC_D * DESC_SCL_FCTR) ** 2))
+
+    def lin_onehot(binf, n):
+        b0 = np.floor(binf).astype(int)
+        f = binf - b0
+        oh = np.zeros((len(binf), n), np.float32)
+        for i, (b, ff) in enumerate(zip(b0, f)):
+            if 0 <= b < n:
+                oh[i, b] += 1 - ff
+            if 0 <= b + 1 < n:
+                oh[i, b + 1] += ff
+        return oh
+
+    rbin = oy / DESC_SCL_FCTR + DESC_D / 2 - 0.5
+    cbin = ox / DESC_SCL_FCTR + DESC_D / 2 - 0.5
+    ohr = lin_onehot(rbin, DESC_D)
+    ohc = lin_onehot(cbin, DESC_D)
+    rc = (ohr[:, :, None] * ohc[:, None, :]).reshape(len(ox), -1)
+    rc = rc * wgt[:, None]
+    return (ox.astype(np.float32), oy.astype(np.float32),
+            rc.astype(np.float32))
+
+
+_DESC_OX, _DESC_OY, _DESC_RC = _static_desc_bins()
+
+
+def _bilinear_taps(x: torch.Tensor, y: torch.Tensor, h: int, w: int):
+    """Flat index of the top-left tap and the fractions of bilinear
+    samples at (x, y) in an (h, w) image, clamped inside it as the
+    reference clamps them (to size - 1.001)."""
+    x = torch.clamp(x, 0.0, w - 1.001)
+    y = torch.clamp(y, 0.0, h - 1.001)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    return y0.to(torch.int64) * w + x0.to(torch.int64), x - x0, y - y0
+
+
+def _blend(take, i00: torch.Tensor, w: int, fx: torch.Tensor,
+           fy: torch.Tensor) -> torch.Tensor:
+    """The bilinear blend of the four taps `take` reads at i00, i00 + 1,
+    i00 + w and i00 + w + 1."""
+    v00, v01 = take(i00), take(i00 + 1)
+    v10, v11 = take(i00 + w), take(i00 + w + 1)
+    return ((1 - fy) * ((1 - fx) * v00 + fx * v01)
+            + fy * ((1 - fx) * v10 + fx * v11))
+
+
+def _bilinear_many(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
+    """Bilinear samples of `(B, H, W)` at `(B, ...)` coordinates."""
+    B, h, w = img.shape
+    flat = img.reshape(B, h * w)
+    i00, fx, fy = _bilinear_taps(x, y, h, w)
+    i00 = i00.reshape(B, -1)
+    return _blend(lambda i: flat.gather(1, i).reshape(x.shape), i00, w, fx, fy)
+
+
+def _sample_gradients(grad_stack: torch.Tensor, layer: torch.Tensor,
+                      x: torch.Tensor, y: torch.Tensor):
+    """Bilinear samples of both channels of a `(B, 2, S, H, W)` gradient
+    stack (bf16 in the detector) at per-keypoint layers: layer `(B, K)`,
+    x and y `(B, K, P)`. Each tap is cast to float32 before the blend, as
+    in the reference. Returns (gx, gy), each `(B, K, P)` float32."""
+    B, _, s, h, w = grad_stack.shape
+    i00, fx, fy = _bilinear_taps(x, y, h, w)
+    i00 = ((layer.to(torch.int64) * (h * w))[..., None] + i00).reshape(B, -1)
+
+    def chan(flat):
+        return _blend(lambda i: flat.gather(1, i).to(torch.float32)
+                      .reshape(x.shape), i00, w, fx, fy)
+
+    return (chan(grad_stack[:, 0].reshape(B, -1)),
+            chan(grad_stack[:, 1].reshape(B, -1)))
+
+
+def _orientation_from_samples(gx: torch.Tensor, gy: torch.Tensor,
+                              offs: torch.Tensor) -> torch.Tensor:
+    """Dominant orientation from `(..., P)` gradient samples on the grid
+    `offs` (P, 2): a 36-bin histogram weighted by magnitude and a
+    Gaussian, smoothed twice, its peak refined by a parabola."""
+    mag = torch.sqrt(gx * gx + gy * gy)
+    ori = torch.atan2(gy, gx)
+    r2 = torch.sum(offs ** 2, dim=1)
+    wgt = torch.exp(-r2 / (2.0 * ORI_SIG_FCTR ** 2))
+    bin_f = (ori / (2 * math.pi) + 0.5) * ORI_BINS
+    fl = torch.floor(bin_f)
+    b0 = fl.to(torch.int64) % ORI_BINS
+    frac = bin_f - fl
+    w_all = mag * wgt
+    oh0 = F.one_hot(b0, ORI_BINS).to(w_all.dtype)
+    oh1 = F.one_hot((b0 + 1) % ORI_BINS, ORI_BINS).to(w_all.dtype)
+    hist = (torch.einsum("...p,...pb->...b", w_all * (1 - frac), oh0)
+            + torch.einsum("...p,...pb->...b", w_all * frac, oh1))
+
+    def smooth(hh):
+        return (6 * hh + 4 * (torch.roll(hh, 1, -1) + torch.roll(hh, -1, -1))
+                + (torch.roll(hh, 2, -1) + torch.roll(hh, -2, -1))) / 16.0
+
+    hist = smooth(smooth(hist))
+    pk = torch.argmax(hist, dim=-1, keepdim=True)
+    hl = hist.gather(-1, (pk - 1) % ORI_BINS)[..., 0]
+    hc = hist.gather(-1, pk)[..., 0]
+    hr = hist.gather(-1, (pk + 1) % ORI_BINS)[..., 0]
+    denom = hl - 2 * hc + hr
+    safe = denom.abs() > 1e-12
+    dbin = torch.where(
+        safe, 0.5 * (hl - hr) / torch.where(safe, denom, torch.ones_like(denom)),
+        torch.zeros_like(denom))
+    return (((pk[..., 0].to(torch.float32) + dbin) % ORI_BINS) / ORI_BINS
+            - 0.5) * 2 * math.pi
+
+
+def _descriptor_from_samples(gx: torch.Tensor, gy: torch.Tensor,
+                             angle: torch.Tensor) -> torch.Tensor:
+    """(..., 128) descriptors from (..., 144) rotated-patch gradient
+    samples: trilinear 4x4x8 binning against the static spatial one-hots,
+    cv2's bin direction, normalise, clip at 0.2, renormalise to 512."""
+    mag = torch.sqrt(gx * gx + gy * gy)
+    ori = torch.atan2(gy, gx) - angle[..., None]
+    obin = (ori / (2 * math.pi) % 1.0) * DESC_B
+    fl = torch.floor(obin)
+    b0 = fl.to(torch.int64) % DESC_B
+    f = obin - fl
+    oh0 = F.one_hot(b0, DESC_B).to(mag.dtype)
+    oh1 = F.one_hot((b0 + 1) % DESC_B, DESC_B).to(mag.dtype)
+    t = mag[..., None] * (oh0 * (1 - f)[..., None] + oh1 * f[..., None])
+    rc = torch.from_numpy(_DESC_RC).to(mag.device)
+    desc = torch.einsum("...po,pg->...go", t, rc)[..., _OBIN_REV]
+    desc = desc.reshape(*mag.shape[:-1], -1)
+    norm = torch.linalg.vector_norm(desc, dim=-1, keepdim=True)
+    desc = desc / torch.clamp(norm, min=1e-12)
+    desc = torch.clamp(desc, max=DESC_MAG_THR)
+    norm = torch.linalg.vector_norm(desc, dim=-1, keepdim=True)
+    return 512.0 * desc / torch.clamp(norm, min=1e-12)
+
+
+def _rotated_desc_grid(x: torch.Tensor, y: torch.Tensor, angle: torch.Tensor,
+                       scl: torch.Tensor):
+    """(..., 144) sample coordinates of the rotated descriptor grid
+    around (x, y) `(...)` at scale `scl`."""
+    ox = torch.from_numpy(_DESC_OX).to(x.device)
+    oy = torch.from_numpy(_DESC_OY).to(x.device)
+    ca, sa = torch.cos(angle)[..., None], torch.sin(angle)[..., None]
+    px = x[..., None] + (ca * ox - sa * oy) * scl[..., None]
+    py = y[..., None] + (sa * ox + ca * oy) * scl[..., None]
+    return px, py
 
 
 def _gaussian_pyramid(img: torch.Tensor) -> torch.Tensor:
@@ -146,9 +328,10 @@ def _refine_candidates(dog: torch.Tensor, sel_s, sel_y, sel_x,
 class OctaveSample:
     """One octave's refined candidates and the `ori_desc` inputs for them.
 
-    xs, ys, contrast, scl, keep: (B, C) in octave pixels; dxs, dys:
-    (B*S, h, w) bf16 gradient stacks; meta: (B*C, 4) int32 (`prep_meta`);
-    hp, fb: padded height and fraction bits of this octave's shape."""
+    xs, ys, contrast, scl, keep: (B, C) in octave pixels; layer: (B, C)
+    int32 gradient level (1..N_LAYERS) of each slot; dxs, dys: (B*S, h, w)
+    bf16 gradient stacks; meta: (B*C, 4) int32 (`prep_meta`); hp, fb:
+    padded height and fraction bits of this octave's shape."""
 
     octave: int
     xs: torch.Tensor
@@ -156,6 +339,7 @@ class OctaveSample:
     contrast: torch.Tensor
     scl: torch.Tensor
     keep: torch.Tensor
+    layer: torch.Tensor
     dxs: torch.Tensor
     dys: torch.Tensor
     meta: torch.Tensor
@@ -165,17 +349,23 @@ class OctaveSample:
 
 def octave_samples(imgs: torch.Tensor, max_features: int = 2048,
                    contrast_threshold: float = 0.04,
-                   edge_threshold: float = 10.0) -> Iterator[OctaveSample]:
+                   edge_threshold: float = 10.0,
+                   upscale: bool = False) -> Iterator[OctaveSample]:
     """Scale space, extrema, refinement and compaction, octave by octave.
 
     Yields each octave's candidates together with the exact inputs of its
-    `ori_desc` call, so the detector and kernel checks share one path."""
+    `ori_desc` call, so the detector and kernel checks share one path.
+    With `upscale`, the scale space is built on the image doubled by JAX's
+    linear resize, from a base blur that assumes twice INIT_SIGMA."""
     from tpu3drec_torch.ops.pallas_sample import frac_bits, pad_dims, prep_meta
 
+    if upscale:
+        imgs = resize(imgs, (imgs.shape[-2] * 2, imgs.shape[-1] * 2))
     B, h0, w0 = imgs.shape
     dev = imgs.device
     n_oct = num_octaves(h0, w0)
-    sig_diff = math.sqrt(max(SIGMA0 ** 2 - INIT_SIGMA ** 2, 0.01))
+    init = 2 * INIT_SIGMA if upscale else INIT_SIGMA
+    sig_diff = math.sqrt(max(SIGMA0 ** 2 - init ** 2, 0.01))
     cur = gaussian_blur_matmul(imgs, sig_diff)
     for o in range(n_oct):
         gauss = _gaussian_pyramid(cur)                  # (B, S, h, w)
@@ -225,30 +415,59 @@ def octave_samples(imgs: torch.Tensor, max_features: int = 2048,
                          scl.reshape(-1), keep.reshape(-1), hp, wp)
         yield OctaveSample(
             octave=o, xs=xs, ys=ys, contrast=contrast, scl=scl, keep=keep,
-            dxs=dx_stack.to(torch.bfloat16).reshape(B * S, hh, wh),
+            layer=layer, dxs=dx_stack.to(torch.bfloat16).reshape(B * S, hh, wh),
             dys=dy_stack.to(torch.bfloat16).reshape(B * S, hh, wh),
             meta=meta, hp=hp, fb=frac_bits(hp, wp))
         if o + 1 < n_oct:
             cur = downsample2(gauss[:, N_LAYERS])
 
 
+def _gather_ori_desc(oc: OctaveSample):
+    """Orientation and descriptor of an octave's slots by the gather
+    sampler: (B, C) angles and (B, C, 128) descriptors."""
+    B, C = oc.xs.shape
+    S = oc.dxs.shape[0] // B
+    h, w = oc.dxs.shape[-2:]
+    grad = torch.stack([oc.dxs.reshape(B, S, h, w),
+                        oc.dys.reshape(B, S, h, w)], dim=1)
+    offs = _patch_offsets(ORI_SAMPLES, oc.xs.device) * 2.0 * ORI_RADIUS_FCTR
+    px = oc.xs[..., None] + offs[:, 0] * oc.scl[..., None]
+    py = oc.ys[..., None] + offs[:, 1] * oc.scl[..., None]
+    gx, gy = _sample_gradients(grad, oc.layer, px, py)
+    angle = _orientation_from_samples(gx, gy, offs)
+    pxd, pyd = _rotated_desc_grid(oc.xs, oc.ys, angle, oc.scl)
+    gxd, gyd = _sample_gradients(grad, oc.layer, pxd, pyd)
+    return angle, _descriptor_from_samples(gxd, gyd, angle)
+
+
 def detect_and_compute(imgs: torch.Tensor, max_features: int = 2048,
                        contrast_threshold: float = 0.04,
-                       edge_threshold: float = 10.0):
+                       edge_threshold: float = 10.0,
+                       upscale: bool = False,
+                       sampler: str = "auto"):
     """Full SIFT on `(B, H, W)` float32 images in [0, 1] (a single
     `(H, W)` image is accepted too). Returns `(xy, response, scale,
-    angle, desc, mask)` with capacity `max_features` per image."""
+    angle, desc, mask)` with capacity `max_features` per image.
+
+    sampler: "pallas" or "auto" (the `ori_desc` window route) or "xla"
+    (the gather sampler)."""
     from tpu3drec_torch.ops.pallas_sample import ori_desc_windows
 
+    if sampler not in ("auto", "pallas", "xla"):
+        raise ValueError(f"unknown SIFT sampler {sampler!r}")
     single = imgs.ndim == 2
     if single:
         imgs = imgs[None]
     B = imgs.shape[0]
     parts = []
     for oc in octave_samples(imgs, max_features, contrast_threshold,
-                             edge_threshold):
-        angle, desc = ori_desc_windows(oc.dxs, oc.dys, oc.meta, oc.hp, oc.fb)
-        factor = 2.0 ** oc.octave
+                             edge_threshold, upscale):
+        if sampler == "xla":
+            angle, desc = _gather_ori_desc(oc)
+        else:
+            angle, desc = ori_desc_windows(oc.dxs, oc.dys, oc.meta, oc.hp,
+                                           oc.fb)
+        factor = (2.0 ** oc.octave) * (0.5 if upscale else 1.0)
         parts.append(dict(
             xy=torch.stack([oc.xs * factor, oc.ys * factor], dim=-1),
             response=oc.contrast.abs(),
@@ -288,17 +507,46 @@ def detect_and_compute(imgs: torch.Tensor, max_features: int = 2048,
 def detect_sift_features(img: torch.Tensor, max_features: int = 2048,
                          contrast_threshold: float = 0.04,
                          edge_threshold: float = 10.0,
-                         upscale: bool = False,
+                         upscale: bool = False, sampler: str = "auto",
                          method: str = "SIFT", **_unused) -> Features:
-    """Detector-contract wrapper returning a Features for one image."""
-    if upscale:
-        raise NotImplementedError("tpu3drec_torch SIFT: upscale=True is "
-                                  "not ported yet")
+    """Detector-contract wrapper returning Features for one `(H, W)`
+    image or a `(B, H, W)` batch."""
     xy, resp, scale, angle, desc, mask = detect_and_compute(
         img, max_features=max_features,
         contrast_threshold=contrast_threshold,
-        edge_threshold=edge_threshold)
+        edge_threshold=edge_threshold, upscale=upscale, sampler=sampler)
     return Features(xy=xy, response=resp, scale=scale, angle=angle,
                     desc=desc, mask=mask, method=method,
                     desc_kind=DescriptorKind.FLOAT.value,
                     image_shape=tuple(img.shape[-2:]))
+
+
+def describe_at_points(img: torch.Tensor, xy: torch.Tensor,
+                       mask: torch.Tensor, patch_scale: float = 2.0):
+    """SIFT descriptors and orientations at given points, at one fixed
+    scale (the Harris and GFTT detectors' descriptor). img `(B, H, W)`,
+    xy `(B, K, 2)`, mask `(B, K)` (unbatched `(H, W)`, `(K, 2)`, `(K,)`
+    too). Samples float32 central differences of the sigma-1.6 blur,
+    zero at the border. Returns (desc (B, K, 128), zero where masked;
+    angle (B, K), zero where masked)."""
+    single = img.ndim == 2
+    if single:
+        img, xy, mask = img[None], xy[None], mask[None]
+    blur = gaussian_blur_matmul(img, SIGMA0)
+    dx = F.pad(0.5 * (blur[..., :, 2:] - blur[..., :, :-2]), (1, 1))
+    dy = F.pad(0.5 * (blur[..., 2:, :] - blur[..., :-2, :]), (0, 0, 1, 1))
+    x, y = xy[..., 0], xy[..., 1]
+    scl = torch.full_like(x, patch_scale)
+    offs = _patch_offsets(ORI_SAMPLES, img.device) * 2.0 * ORI_RADIUS_FCTR
+    px = x[..., None] + offs[:, 0] * scl[..., None]
+    py = y[..., None] + offs[:, 1] * scl[..., None]
+    angle = _orientation_from_samples(_bilinear_many(dx, px, py),
+                                      _bilinear_many(dy, px, py), offs)
+    pxd, pyd = _rotated_desc_grid(x, y, angle, scl)
+    desc = _descriptor_from_samples(_bilinear_many(dx, pxd, pyd),
+                                    _bilinear_many(dy, pxd, pyd), angle)
+    desc = desc * mask[..., None]
+    angle = torch.where(mask, angle, torch.zeros_like(angle))
+    if single:
+        return desc[0], angle[0]
+    return desc, angle
