@@ -100,9 +100,36 @@ Phases, each of which raises (and so exits non-zero) on failure:
      SIFT's gather sampler and `upscale`, card against CPU; `ori_desc`
      at the batch's SIFT octaves and `knn2` at its AKAZE (486 wide,
      padded to 512) and BRISK operands against their plain versions;
-  9. one JSON line with every kernel's launches (by path), error, time,
+  9. the rest of the dense stage on the sparse input and images phase
+     7's chain handed its dense stage (24 views of 640x480, ~52,000
+     cloud points): `DenseReconstructionPipeline(mesh_method=m)` for
+     poisson, ball_pivot and alpha at the defaults (meshes at 96, the
+     union-of-balls fields on up to 16,384 points), each with its stage
+     seconds, cloud, mesh method used (it must be m; ball pivoting may
+     degrade to the depth grid only where its own mesh is empty, as in
+     both packages' CPU runs of this folder), faces and mesh quality;
+     `run_multi_reference(num_refs=3, mesh_method="poisson")` with
+     per-reference and merged points and each ICP step's rotation,
+     translation and median displacement of the points it moves
+     (printed, not held: the reference's ICP turns these clouds by
+     degrees, in both packages); `plane_sweep_depth` and
+     `plane_sweep_depth_blockwise` at 480x640 with 64 planes on
+     tests/test_plane_sweep.py's scene scaled to that size, against the
+     test's bars, timed; `sgm` at the plane-sweep volume (1, 64, 480,
+     640) bit for bit against its plain version, twice, timed beside
+     its bound; the sgm launches around each call (any zero fails, the
+     blockwise sweep runs no SGM); against the CPU plain path: Poisson
+     (chi, iso, faces, Chamfer) on the card's cloud, alpha and ball
+     pivoting (at a radius of 4 voxels, non-empty) on a 2,048-point
+     subsample of it, their distance grids on both devices held to the
+     exact float64 distances (argmin too, where the second-nearest
+     point is clear of the rounding bound), and each ICP merge step,
+     step by step (correspondences equal but for near-ties within the
+     rounding window, Kabsch on the card's correspondences within
+     1e-3 deg and 1e-4 of the extent; the end-to-end gap printed);
+  10. one JSON line with every kernel's launches (by path), error, time,
      bound and the plain and library yardsticks; each phase's seconds;
-  10. last line: {"ok": true, "device": {...}}.
+  11. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or without the package beside it, it fails before printing
 any result. It imports nothing of JAX.
@@ -231,6 +258,47 @@ ACC_DEPTH_METHOD = {128: "SIFT", 486: "AKAZE", 512: "BRISK"}
 ACC_RAW_MATCHES_BAR = 20      # each method's mean raw matches a pair
 ACC_ROT_SHARE_BAR = 0.95      # share of neighbouring views within 1 deg
 ACC_SHARE = 0.99              # AKAZE / BRISK keypoints and bits, card vs CPU
+
+# phase 9: the rest of the dense stage on phase 7's folder
+IMPLICIT_METHODS = ("poisson", "ball_pivot", "alpha")
+# faces of each method's mesh: about half the fewest of both packages'
+# CPU runs of this folder (PERF.md §6). Ball pivoting may come out
+# empty here, as it does in both packages' CPU runs: the cloud's far
+# tail of stereo outliers sets a voxel far wider than the ball, so the
+# ball's support holds almost no cell; the pipeline then degrades to the
+# depth-grid mesh, and the phase checks that the mesher's own result
+# was empty. The mesher itself is held non-empty on the subsample below,
+# at a radius of CPU_BALL_RADIUS_VOXELS voxels
+IMPLICIT_FACES_BAR = {"poisson": 700, "ball_pivot": 1, "alpha": 400}
+MULTI_REFS = 3
+MULTI_FACES_BAR = 500         # the merged Poisson mesh, the same way
+# ICP's steps in multi-reference mode are printed (rotation, translation,
+# the median displacement of the points they move), not held: the
+# reference's ICP turns phase 7's clouds by degrees in both packages,
+# their far tails of stereo outliers driving Kabsch (PERF.md §6), so
+# the card's ICP is held to the CPU plain path's on the same operands,
+# step by step (`icp_check`): one correspondence flipped at a near-tie
+# changes every later step, so the end-to-end gap is only printed
+CPU_SUBSAMPLE = 2048          # alpha / ball pivot, card vs CPU
+CPU_BALL_RADIUS_VOXELS = 4    # ball pivoting's radius there (voxels)
+CPU_FACES_RTOL = 0.01         # faces, card vs CPU, on the same cloud
+CPU_CHAMFER_VOXELS = 0.01     # symmetric mean vertex Chamfer (voxels)
+CPU_CHI_ATOL = 1e-5           # x max |chi| (FFT libraries and atomics)
+CPU_ISO_RTOL = 1e-4
+# distance grids (float32 |g|^2 + |p|^2 - 2 g.p) on each device against
+# the exact float64 distances at the same float32 centres: |d^2 - exact|
+# within this many eps32 (|g| + max |p|)^2 (the expanded form's first-
+# order rounding bound is 2.5), argmin exact wherever the second-nearest
+# point is farther by twice that, which must hold for this share of the
+# cells at least
+CPU_DIST2_EPS = 4.0
+CPU_CLEAR_SHARE = 0.5
+CPU_ICP_ROT_DEG = 1e-3        # ICP's Kabsch step, card vs CPU on the
+CPU_ICP_SHIFT = 1e-4          # same correspondences (t over the extent)
+SWEEP_H, SWEEP_W, SWEEP_PLANES = 480, 640, 64
+SWEEP_F, SWEEP_B = 500.0, 0.4   # tests/test_plane_sweep.py's scene x5
+SWEEP_VALID_BAR = 0.3         # the test's own bars
+SWEEP_REL_ERR_BAR = 0.08
 
 # NVIDIA H100 SXM data-sheet peaks (dense)
 PEAK_BYTES_PER_S = 3.35e12
@@ -2036,6 +2104,7 @@ def run_folder(torch, card, dev, tmp, names, Rs):
     # reference (the CPU's stage over every view was most of this
     # phase's time)
     sparse, dimgs = handed.pop("dense")
+    dense_input = (sparse, dimgs)
     ref_view = dense.get("reference_view")
     posed = sorted(n for n in sparse["camera_poses"] if n in dimgs)
     at = posed.index(ref_view)
@@ -2138,7 +2207,7 @@ def run_folder(torch, card, dev, tmp, names, Rs):
                       "the folder's first batch of ORB operands")
     print(f"folder chain phase on {card}: {time.perf_counter() - t_phase:.1f} s")
     return dict(
-        launches=launches,
+        launches=launches, dense_input=dense_input,
         ori_desc={"folder_ms": od["ms"], "folder_plain_ms": od["plain_ms"],
                   "folder_bound_ms": od["bound_ms"],
                   "folder_bound_by": od["bound_by"],
@@ -2451,6 +2520,424 @@ def run_folder_accurate(torch, card, dev, tmp, names, Rs):
               **{f"brisk_{k}": v for k, v in brisk_k.items()}})
 
 
+def sweep_scene(h, w, f, baseline, seed=0):
+    """tests/test_plane_sweep.py's unrectified pair at (h, w): a smoothed
+    uniform texture seen at depth 8 with a box at depth 4 (the test's
+    box scaled with the image), the second camera shifted by `baseline`
+    along x; at (96, 128, 100, 0.4) the test's pair itself. Returns
+    (ref, other, K, R, t, true depth)."""
+    rng = np.random.default_rng(seed)
+    K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]], np.float32)
+    pad = 2 * int(np.ceil(f * baseline / 4.0))    # twice the largest disparity
+    tex = rng.uniform(0, 1, (h, w + 2 * pad)).astype(np.float32)
+    k = np.array([0.25, 0.5, 0.25])
+    for ax in (0, 1):
+        tex = np.apply_along_axis(lambda m: np.convolve(m, k, mode="same"),
+                                  ax, tex).astype(np.float32)
+    depth = np.full((h, w), 8.0, np.float32)
+    depth[h * 30 // 96:h * 70 // 96, w * 40 // 128:w * 90 // 128] = 4.0
+    disp = f * baseline / depth
+    ref = tex[:, pad:pad + w]
+    xs = np.arange(w)[None, :] + disp
+    xi = np.clip(xs.astype(int), 0, w + 2 * pad - 2)
+    fr = xs - xi
+    row = np.arange(h)[:, None] * np.ones((1, w), int)
+    other = ((1 - fr) * tex[row, np.clip(xi + pad, 0, w + 2 * pad - 1)]
+             + fr * tex[row, np.clip(xi + pad + 1, 0, w + 2 * pad - 1)])
+    return (ref, other.astype(np.float32), K, np.eye(3, dtype=np.float32),
+            np.array([-baseline, 0, 0], np.float32), depth)
+
+
+def chamfer(a, b):
+    """Symmetric mean nearest-vertex distance of two vertex sets, on the
+    host in chunks."""
+    import torch
+    if len(a) == 0 or len(b) == 0:
+        return np.inf
+    A, B = (torch.from_numpy(np.asarray(x, np.float64)) for x in (a, b))
+
+    def one_way(P, Q):
+        return float(torch.cat([torch.cdist(P[i:i + 4096], Q).min(1).values
+                                for i in range(0, len(P), 4096)]).mean())
+    return max(one_way(A, B), one_way(B, A))
+
+
+def field_check(torch, dev, pts, origin, voxel, fields, chunk=4096):
+    """Hold distance grids that the expanded float32 form computed (the
+    same grid on each device: `fields` maps a label to (distance,
+    argmin or None)) against the exact distances, float64 differences
+    on the card from the same float32 centres and points. Returns, by
+    label, the largest |d^2 - exact d^2| in units of eps32 (|g| + max
+    |p|)^2 and the argmin misses among the clear cells (the second-
+    nearest point farther by 2 CPU_DIST2_EPS of those units), and the
+    clear cells' share."""
+    dims = next(iter(fields.values()))[0].shape
+    P = torch.from_numpy(np.asarray(pts, np.float32)).to(dev)
+    axes = [torch.arange(k, dtype=torch.float32, device=dev) for k in dims]
+    G = (torch.stack(torch.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3)
+         * torch.tensor(voxel, dtype=torch.float32, device=dev)
+         + torch.from_numpy(np.asarray(origin, np.float32)).to(dev))
+    Pd, Gd = P.double(), G.double()
+    d2, idx = [], []
+    for s in range(0, len(Gd), chunk):
+        top = torch.topk(((Gd[s:s + chunk, None] - Pd[None]) ** 2).sum(-1),
+                         2, dim=1, largest=False)
+        d2.append(top.values)
+        idx.append(top.indices[:, 0])
+    d2, idx = torch.cat(d2), torch.cat(idx)
+    unit = (float(np.finfo(np.float32).eps)
+            * (torch.linalg.norm(Gd, dim=1) + torch.linalg.norm(Pd, dim=1).max())
+            ** 2)
+    clear = d2[:, 1] - d2[:, 0] > 2 * CPU_DIST2_EPS * unit
+    out = {}
+    for label, (dist, amin) in fields.items():
+        d = torch.from_numpy(np.asarray(dist)).to(dev).reshape(-1).double()
+        err = float(((d * d - d2[:, 0]).abs() / unit).max())
+        miss = (None if amin is None else int(
+            (torch.from_numpy(np.asarray(amin)).to(dev).reshape(-1).long()
+             != idx)[clear].sum()))
+        out[label] = (err, miss)
+    return out, float(clear.double().mean())
+
+
+def icp_check(torch, pc, operands, kw, path_rt):
+    """Hold the card's ICP to the CPU plain path step by step on one merge
+    step's operands. The card's steps (`_icp_step` from the identity) are
+    replayed and must end at the path's (R, t) bit for bit. At each of the
+    card's states the CPU's correspondences must equal the card's, except
+    where the exact float64 distances put the choice within the rounding
+    of the float32 expanded form (CPU_DIST2_EPS eps32 (|m| + max |p|)^2 on
+    each device): two dst points at a near-tie, or a nearest distance at
+    max_corr_dist^2. The CPU's Kabsch on the card's correspondences must
+    give the card's next state within CPU_ICP_ROT_DEG and CPU_ICP_SHIFT.
+    Returns the correspondence flips, the largest flip's share of its
+    rounding window (held <= 1), and the largest R and t gaps."""
+    src, dst, sm, dm = operands
+    iters, mcd = kw.get("iters", 20), kw["max_corr_dist"]
+    R = torch.eye(3, dtype=src.dtype, device=src.device)
+    t = torch.zeros(3, dtype=src.dtype, device=src.device)
+    dst2 = torch.sum(dst * dst, 1)
+    states, corrs = [(R, t)], []
+    for _ in range(iters):
+        R, t, c = pc._icp_step(src, dst, sm, dm, dst2, R, t, mcd)
+        states.append((R, t))
+        corrs.append(c)
+    if not (torch.equal(R, path_rt[0]) and torch.equal(t, path_rt[1])):
+        fail("ICP: replaying the card's steps does not give the path's "
+             "(R, t)")
+    s_c, d_c, sm_c, dm_c = (x.cpu() for x in operands)
+    d2_c = torch.sum(d_c * d_c, 1)
+    s64, d64 = s_c.double(), d_c.double()
+    extent = float((d_c.max(0).values - d_c.min(0).values).max())
+    pmax = float(torch.linalg.norm(d64, dim=1).max())
+    eps = float(np.finfo(np.float32).eps)
+    flips, share, rot, shift = 0, 0.0, 0.0, 0.0
+    for k in range(iters):
+        Rk, tk = (x.cpu() for x in states[k])
+        jk, wk = (x.cpu() for x in corrs[k])
+        _, _, (jc, wc) = pc._icp_step(s_c, d_c, sm_c, dm_c, d2_c, Rk, tk, mcd)
+        rows = torch.nonzero((jc != jk) | (wc != wk))[:, 0]
+        if len(rows):
+            m64 = s64[rows] @ Rk.double().T + tk.double()
+            da = ((m64 - d64[jk[rows]]) ** 2).sum(1)
+            db = ((m64 - d64[jc[rows]]) ** 2).sum(1)
+            window = 2 * CPU_DIST2_EPS * eps * (torch.linalg.norm(m64, dim=1)
+                                                + pmax) ** 2
+            tie = torch.where(jc[rows] != jk[rows], (da - db).abs(), 0.0)
+            edge = torch.where(wc[rows] != wk[rows],
+                               torch.minimum((da - mcd ** 2).abs(),
+                                             (db - mcd ** 2).abs()), 0.0)
+            share = max(share, float((torch.maximum(tie, edge)
+                                      / window).max()))
+            flips += len(rows)
+        Rn, tn, _ = pc._icp_step(s_c, d_c, sm_c, dm_c, d2_c, Rk, tk, mcd,
+                                 corr=(jk, wk))
+        rot = max(rot, rot_err_deg(Rn.numpy(), states[k + 1][0].cpu().numpy()))
+        shift = max(shift, float(torch.linalg.norm(
+            tn - states[k + 1][1].cpu())) / extent)
+    return flips, share, rot, shift
+
+
+def run_dense_rest(torch, card, dev, sparse, images):
+    """Phase 9: the rest of the dense stage on the sparse input and the
+    images phase 7's chain handed its dense stage (24 views of 640x480):
+    each implicit mesh method through `DenseReconstructionPipeline`,
+    `run_multi_reference` with ICP merging, the plane sweep at 480x640
+    with 64 planes (full and blockwise), `sgm` at the plane-sweep volume
+    against its plain version, and Poisson, alpha, ball pivoting and ICP
+    against the CPU plain path on the card's own cloud."""
+    import tpu3drec_torch.pipelines.dense as pdense
+    from tpu3drec_torch.ops import implicit as imp
+    from tpu3drec_torch.ops import pallas_sgm as psg
+    from tpu3drec_torch.ops import pointcloud as pc
+    from tpu3drec_torch.ops import stereo as st
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    launches = {}
+
+    def counted(label, fn):
+        psg.sgm_aggregate_batch.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        launches[label] = psg.sgm_aggregate_batch.launches
+        return out
+
+    # ---- each implicit mesh method on every view
+    cloud = None
+    for m in IMPLICIT_METHODS:
+        pipe = pdense.DenseReconstructionPipeline(mesh_method=m, device=None)
+        t0 = time.perf_counter()
+        res = counted(m, lambda: pipe.run_complete_pipeline(sparse, images))
+        wall = time.perf_counter() - t0
+        mesh, t = res["mesh"], res["timings_s"]
+        print(f"implicit mesh {m} on {res['num_views']} views (reference "
+              f"{res['reference_view']}): {wall:.3f} s; seconds: stereo "
+              f"{t['stereo']:.3f}, point cloud {t['point_cloud']:.3f}, mesh "
+              f"{t['mesh']:.3f}; cloud {res['point_cloud']['num_points']} "
+              f"points; mesh method used {mesh['method']}, "
+              f"{mesh['num_faces']} faces, {mesh['num_vertices']} vertices, "
+              f"area {mesh['surface_area']:.4f}, watertight "
+              f"{mesh['is_watertight']}, boundary edges "
+              f"{mesh.get('boundary_edges')}, non-manifold edges "
+              f"{mesh.get('nonmanifold_edges')}; sgm launches {launches[m]}")
+        if m == "ball_pivot" and mesh["method"] == "depth_grid":
+            # the reference's degraded mode for an empty mesh, and only it
+            own = imp.ball_pivot_mesh(pipe._arrays["points"],
+                                      pipe._arrays["normals"], device=dev)
+            print(f"implicit mesh {m}: the mesher's own mesh of this cloud "
+                  f"has {len(own['faces'])} faces (radius "
+                  f"{own['radius']:.4f}, voxel {own['voxel']:.4f}), so the "
+                  f"pipeline took the depth-grid mesh")
+            if len(own["faces"]):
+                fail(f"implicit mesh {m}: the pipeline fell back although "
+                     f"the mesher's mesh is not empty")
+        elif mesh["method"] != m:
+            fail(f"implicit mesh {m}: the pipeline fell back to "
+                 f"{mesh['method']}")
+        elif mesh["num_faces"] < IMPLICIT_FACES_BAR[m]:
+            fail(f"implicit mesh {m}: fewer than {IMPLICIT_FACES_BAR[m]} "
+                 f"faces")
+        if res["point_cloud"]["num_points"] < FOLDER_CLOUD_BAR:
+            fail(f"implicit mesh {m}: fewer than {FOLDER_CLOUD_BAR} cloud "
+                 f"points")
+        if launches[m] == 0:
+            fail(f"implicit mesh {m}: the run never launched the sgm kernel")
+        if cloud is None:
+            cloud = (pipe._arrays["points"], pipe._arrays["normals"])
+        del pipe, res
+
+    # ---- multi-reference mode; a spy keeps each ICP step's operands
+    icp_calls = []
+    icp_entry = pc.icp_register
+
+    def icp_spy(src, dst, src_mask, dst_mask, *a, **k):
+        R, t = icp_entry(src, dst, src_mask, dst_mask, *a, **k)
+        icp_calls.append(((src, dst, src_mask, dst_mask), k, (R, t)))
+        return R, t
+
+    pc.icp_register = icp_spy
+    try:
+        pipe = pdense.DenseReconstructionPipeline(mesh_method="poisson",
+                                                  device=None)
+        t0 = time.perf_counter()
+        res = counted("multi_reference", lambda: pipe.run_multi_reference(
+            sparse, images, num_refs=MULTI_REFS))
+        wall = time.perf_counter() - t0
+    finally:
+        pc.icp_register = icp_entry
+    steps = []
+    for (src, dst, sm, _), _, (R, t) in icp_calls:
+        extent = float((dst.max(0).values - dst.min(0).values).max())
+        moved = torch.linalg.norm(src[sm] @ R.T + t - src[sm], dim=1)
+        steps.append((rot_err_deg(R.cpu().numpy(), np.eye(3)),
+                      float(torch.linalg.norm(t)) / extent,
+                      float(moved.median()), float(moved.median()) / extent))
+    mesh = res["mesh"]
+    print(f"multi-reference ({MULTI_REFS} references "
+          f"{res['reference_views']}): {wall:.3f} s; points per reference "
+          + ", ".join(f"{k} {v['num_points']}" for k, v in
+                      res["per_reference"].items())
+          + f"; merged {res['point_cloud']['num_points']}; mesh "
+          f"{mesh['method']}, {mesh['num_faces']} faces, "
+          f"{mesh['num_vertices']} vertices, area {mesh['surface_area']:.4f};"
+          f" ICP steps (rotation deg, translation / extent, median "
+          f"displacement of the moved points, the same / extent): "
+          + ", ".join(f"({a:.5f}, {b:.6f}, {c:.4f}, {e:.6f})"
+                      for a, b, c, e in steps)
+          + " (printed, not held)"
+          + f"; sgm launches {launches['multi_reference']}")
+    if len(res["reference_views"]) != MULTI_REFS or mesh["method"] != "poisson" \
+            or mesh["num_faces"] < MULTI_FACES_BAR \
+            or len(steps) != MULTI_REFS - 1:
+        fail("multi-reference: fewer references, ICP steps or faces than "
+             "asked, or a fallback mesh")
+    if launches["multi_reference"] == 0:
+        fail("multi-reference: the run never launched the sgm kernel")
+    del pipe, res
+
+    # ---- the plane sweep at full size, and sgm at its volume
+    ref, other, K, R, t, depth = sweep_scene(SWEEP_H, SWEEP_W, SWEEP_F,
+                                             SWEEP_B)
+    ref_d, other_d = (torch.tensor(a, device=dev) for a in (ref, other))
+    interior = np.zeros((SWEEP_H, SWEEP_W), bool)
+    interior[SWEEP_H // 12:-SWEEP_H // 12, SWEEP_W // 8:-SWEEP_W // 16] = True
+    sweep = {}
+    for variant, fn in (("full", st.plane_sweep_depth),
+                        ("blockwise", st.plane_sweep_depth_blockwise)):
+        def call(fn=fn):
+            return fn(ref_d, other_d, K, K, R, t, 2.0, 16.0,
+                      num_planes=SWEEP_PLANES)
+        r = counted(f"plane_sweep_{variant}", call)
+        v = r.valid.cpu().numpy()
+        d = r.depth.cpu().numpy()
+        m = v & interior
+        rel = np.abs(d - depth)[m] / depth[m]
+        ms = cuda_ms(torch, call, reps=3)
+        sweep[variant] = ms
+        print(f"plane sweep ({variant}) at {SWEEP_W}x{SWEEP_H}, "
+              f"{SWEEP_PLANES} planes: {ms:.3f} ms per call (CUDA events); "
+              f"valid on {m.mean():.4f} of the image inside the border (bar "
+              f"> {SWEEP_VALID_BAR}), median relative depth error "
+              f"{np.median(rel) if len(rel) else np.inf:.5f} (bar < "
+              f"{SWEEP_REL_ERR_BAR}); sgm launches "
+              f"{launches[f'plane_sweep_{variant}']}")
+        if not m.mean() > SWEEP_VALID_BAR or not np.median(rel) < SWEEP_REL_ERR_BAR:
+            fail(f"plane sweep ({variant}) misses the test's bars")
+        if not torch.isfinite(r.depth).all():
+            fail(f"plane sweep ({variant}): non-finite depth")
+    if launches["plane_sweep_full"] == 0:
+        fail("plane sweep: the full sweep never launched the sgm kernel")
+
+    seen = []
+    real = st.sgm_aggregate_batch
+
+    def recorder(volumes, *a, **k):
+        seen.append(volumes.clone())
+        return real(volumes, *a, **k)
+
+    st.sgm_aggregate_batch = recorder
+    try:
+        st.plane_sweep_depth(ref_d, other_d, K, K, R, t, 2.0, 16.0,
+                             num_planes=SWEEP_PLANES)
+    finally:
+        st.sgm_aggregate_batch = real
+    if len(seen) != 1 or tuple(seen[0].shape) != (1, SWEEP_PLANES, SWEEP_H,
+                                                  SWEEP_W):
+        fail(f"plane sweep: expected one sgm call at (1, {SWEEP_PLANES}, "
+             f"{SWEEP_H}, {SWEEP_W}), saw {[tuple(v.shape) for v in seen]}")
+    vol = seen[0]
+    err = sgm_equal(torch, psg, vol, "the plane-sweep volume")
+    err = max(err, sgm_equal(torch, psg, vol, "the plane-sweep volume"))
+    sgm_ms = cuda_ms(torch, lambda: psg.sgm_aggregate_batch(vol))
+    plain_ms = cuda_ms(torch, lambda: psg.sgm_aggregate_batch_plain(vol),
+                       reps=1)
+    n = vol.numel()
+    t_bytes = 2 * n * 4 / PEAK_BYTES_PER_S * 1e3
+    t_ops = SGM_FLOPS_PER_ELEMENT * n / PEAK_F32_OPS * 1e3
+    print(f"sgm vs plain at the plane-sweep volume {tuple(vol.shape)}: "
+          f"bit-equal (torch.equal) twice, each twice launched "
+          f"bit-identical; {sgm_ms:.4f} ms per call (CUDA events), plain "
+          f"{plain_ms:.3f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+          f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+    del seen, vol, ref_d, other_d
+
+    # ---- the card against the CPU plain path on the card's own cloud
+    t0 = time.perf_counter()
+    pts, nrm = cloud
+    a, b = (imp.poisson_mesh(pts, nrm, device=d) for d in (dev, cpu))
+    chi_err = float(np.abs(a["chi"] - b["chi"]).max())
+    chi_scale = float(np.abs(b["chi"]).max())
+    cham = chamfer(a["verts"], b["verts"]) / b["voxel"]
+    print(f"Poisson, card vs CPU plain path on the card's cloud ({len(pts)} "
+          f"points, grid {b['chi'].shape}): chi within {chi_err:.3e} (bar "
+          f"{CPU_CHI_ATOL} x {chi_scale:.4e}), iso {a['iso']:.8f} vs "
+          f"{b['iso']:.8f}, faces {len(a['faces'])} vs {len(b['faces'])}, "
+          f"vertex Chamfer {cham:.5f} voxel")
+    if chi_err > CPU_CHI_ATOL * chi_scale \
+            or abs(a["iso"] - b["iso"]) > CPU_ISO_RTOL * abs(b["iso"]) \
+            or abs(len(a["faces"]) - len(b["faces"])) > CPU_FACES_RTOL * len(b["faces"]) \
+            or not cham < CPU_CHAMFER_VOXELS:
+        fail("Poisson: the card disagrees with the CPU plain path")
+    sel = np.random.default_rng(0).choice(len(pts), CPU_SUBSAMPLE,
+                                          replace=False)
+    sub, sub_n = pts[sel], nrm[sel]
+    alpha = max(3.0 * imp._median_nn_spacing(sub), 1e-6)
+    # a ball a few voxels wide (at the meshers' default resolution, 96),
+    # so that both devices mesh the subsample
+    radius = CPU_BALL_RADIUS_VOXELS * float(np.ptp(sub, 0).max()) / 95
+    uob = {d.type: imp._uob_field(sub, radius, 96, device=d)
+           for d in (dev, cpu)}
+    for name, fn in (("alpha", lambda d: imp.alpha_surface_mesh(
+                         sub, alpha, device=d)),
+                     ("ball_pivot", lambda d: imp.ball_pivot_mesh(
+                         sub, sub_n, radius=radius, device=d))):
+        a, b = fn(dev), fn(cpu)
+        fields = {"card": (a["distance"], None), "cpu": (b["distance"], None)}
+        if name == "ball_pivot":    # its grid is _uob_field's at `radius`
+            fields = {k: uob[d.type][:2] for k, d in
+                      (("card", dev), ("cpu", cpu))}
+        held, clear = field_check(torch, dev, sub, b["origin"], b["voxel"],
+                                  fields)
+        cham = chamfer(a["verts"], b["verts"]) / b["voxel"]
+        print(f"{name}, card vs CPU plain path on {CPU_SUBSAMPLE} points of "
+              f"the card's cloud (grid {b['distance'].shape}, "
+              + (f"alpha {alpha:.4f}" if name == "alpha" else
+                 f"radius {radius:.4f}")
+              + f", voxel {b['voxel']:.4f}): distances card vs CPU within "
+              f"{np.abs(a['distance'] - b['distance']).max():.3e}; |d^2 - "
+              f"exact| up to {held['card'][0]:.4f} (card) and "
+              f"{held['cpu'][0]:.4f} (CPU) eps32 (|g| + max |p|)^2 (bar "
+              f"{CPU_DIST2_EPS})"
+              + (f"; argmin misses on the {clear:.4f} clear share of the "
+                 f"cells (bar >= {CPU_CLEAR_SHARE}): {held['card'][1]} "
+                 f"(card), {held['cpu'][1]} (CPU)" if name == "ball_pivot"
+                 else "")
+              + f"; faces {len(a['faces'])} vs {len(b['faces'])}, vertex "
+              f"Chamfer {cham:.5f} voxel")
+        if any(e > CPU_DIST2_EPS or m for e, m in held.values()) \
+                or (name == "ball_pivot" and not clear >= CPU_CLEAR_SHARE):
+            fail(f"{name}: a distance grid misses the exact one")
+        if not len(b["faces"]) \
+                or abs(len(a["faces"]) - len(b["faces"])) > CPU_FACES_RTOL * len(b["faces"]) \
+                or not cham < CPU_CHAMFER_VOXELS:
+            fail(f"{name}: the card disagrees with the CPU plain path, or "
+                 f"the mesh is empty")
+    for i, (ops, kw, rt) in enumerate(icp_calls):
+        flips, share, rot, shift = icp_check(torch, pc, ops, kw, rt)
+        print(f"ICP merge step {i + 1}, card vs CPU plain path step by step "
+              f"({len(ops[0])} x {len(ops[1])} points, {kw.get('iters', 20)}"
+              f" steps): the card's replay ends at the path's (R, t) bit for "
+              f"bit; {flips} correspondences differ, the farthest at "
+              f"{share:.4f} of its rounding window (bar <= 1); Kabsch on the "
+              f"card's correspondences within {rot:.2e} deg (bar "
+              f"{CPU_ICP_ROT_DEG}) and {shift:.2e} of the extent (bar "
+              f"{CPU_ICP_SHIFT})")
+        if not share <= 1.0 or not rot < CPU_ICP_ROT_DEG \
+                or not shift < CPU_ICP_SHIFT:
+            fail("ICP: the card disagrees with the CPU plain path")
+    (src, dst, sm, dm), kw, (R, t) = icp_calls[0]
+    Rh, th = pc.icp_register(src.cpu(), dst.cpu(), sm.cpu(), dm.cpu(), **kw)
+    extent = float((dst.max(0).values - dst.min(0).values).max())
+    dR = rot_err_deg(R.cpu().numpy(), Rh.numpy())
+    dt = float(torch.linalg.norm(t.cpu() - th)) / extent
+    print(f"ICP merge step 1 end to end, card vs CPU plain path from the "
+          f"identity: R within {dR:.2e} deg, t within {dt:.2e} of the extent "
+          f"(printed, not held: a correspondence flipped at a near-tie "
+          f"changes every later step) ({time.perf_counter() - t0:.1f} s for "
+          f"the comparisons)")
+    print(f"dense rest phase on {card}: {time.perf_counter() - t_phase:.1f} s")
+    return dict(
+        launches=launches,
+        sgm={"sweep_ms": sgm_ms, "sweep_plain_ms": plain_ms,
+             "sweep_bound_ms": max(t_bytes, t_ops),
+             "sweep_bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "sweep_max_abs_err": err,
+             "sweep_shape": [1, SWEEP_PLANES, SWEEP_H, SWEEP_W],
+             "sweep_full_ms": sweep["full"],
+             "sweep_blockwise_ms": sweep["blockwise"]})
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "tpu3drec_torch", "csrc")):
@@ -2602,7 +3089,13 @@ def main():
         fields["knn2"].update(f["knn2"])
         fields["ori_desc"].update(f["ori_desc"])
 
-    # ---- 9. the kernels line
+    # ---- 9. the rest of the dense stage on phase 7's dense input
+    t0 = time.perf_counter()
+    rest = run_dense_rest(torch, card, dev, *folder.pop("dense_input"))
+    fields["sgm"].update(rest["sgm"])
+    phase_s["9 dense rest"] = time.perf_counter() - t0
+
+    # ---- 10. the kernels line
     sources = {
         "ori_desc": ("tpu3drec_torch/csrc/ori_desc.cu",
                      "tpu3drec/ops/pallas_sample.py:541"),
@@ -2624,10 +3117,14 @@ def main():
                             "pair_step" if name != "sgm" else "dense":
                                 launches[name],
                             "folder": folder["launches"][name],
-                            "folder_accurate": accurate["launches"][name]},
+                            "folder_accurate": accurate["launches"][name],
+                            **({f"dense_rest_{k}": v for k, v in
+                                rest["launches"].items()}
+                               if name == "sgm" else {})},
                         **{k: v for k, v in f.items() if k.startswith(
                             ("full_", "library_bf16", "kernel_ms", "orb_",
-                             "folder_", "akaze_", "brisk_", "accurate_"))}})
+                             "folder_", "akaze_", "brisk_", "accurate_",
+                             "sweep_"))}})
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in phase_s.items()))
     print(f"chip_smoke wall time: {time.perf_counter() - t_main:.1f} s "

@@ -346,21 +346,17 @@ def test_dense_outputs_written(dense_runs):
         assert (out / f).exists(), f
 
 
-@pytest.mark.parametrize("method", ["poisson", "ball_pivot", "alpha"])
-def test_unported_mesh_methods_raise(method):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DenseReconstructionPipeline(mesh_method=method, device="cpu")
-
-
 def test_multi_reference_and_default_device():
+    """The multi-reference and implicit-mesh parity tests are in
+    tests/test_torch_implicit.py; here `device=None` means CUDA."""
     sparse, images = _folder()
-    pipe = DenseReconstructionPipeline(device="cpu", **PIPE_KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipe.run_multi_reference(sparse, images)
     if torch.cuda.is_available():
         pytest.skip("a card is present: device=None means it")
     with pytest.raises(RuntimeError, match="CUDA"):
         tpu3drec_torch.run_dense_reconstruction(sparse, images)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DenseReconstructionPipeline(mesh_method="poisson").run_multi_reference(
+            sparse, images)
 
 
 def test_validate_sparse_input_matches_reference():

@@ -207,6 +207,7 @@ def test_port_imports_no_jax():
             "import tpu3drec_torch.ops.stereo, tpu3drec_torch.ops.pallas_sgm, "
             "tpu3drec_torch.ops.pointcloud, tpu3drec_torch.ops.tsdf, "
             "tpu3drec_torch.ops.mesh, tpu3drec_torch.pipelines.dense, "
+            "tpu3drec_torch.ops.implicit, "
             "tpu3drec_torch.ops.lie, tpu3drec_torch.ops.five_point, "
             "tpu3drec_torch.ops.epipolar, tpu3drec_torch.ops.triangulate, "
             "tpu3drec_torch.ops.pnp, tpu3drec_torch.ops.ba, "

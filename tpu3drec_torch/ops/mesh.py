@@ -1,11 +1,12 @@
-"""Mesh utilities on the dense pipeline's path: depth-map meshing,
-2.5D Delaunay, repair, Laplacian smoothing, texture projection, quality
-metrics, signed volume and OBJ export.
+"""Mesh generation: depth-map meshing, 2.5D Delaunay, vertex-clustering
+simplification, repair, Laplacian smoothing, texture projection, quality
+metrics, signed volume, mesh comparison and OBJ export.
 
 Host numpy, copied from `tpu3drec/ops/mesh.py` (meshing is data-dependent
-combinatorial work). Not ported yet: Poisson, ball-pivoting and
-alpha-shape meshing (`ops/implicit.py`) and vertex-clustering
-simplification.
+combinatorial work). Poisson, ball pivoting and alpha shapes are the
+implicit-surface reconstructions of `ops/implicit.py` (their fields on
+`device`, None meaning CUDA), re-exported here under the reference's
+names.
 """
 
 from __future__ import annotations
@@ -132,6 +133,32 @@ def smooth_mesh(verts: np.ndarray, faces: np.ndarray,
     return v, f
 
 
+def simplify_mesh(verts: np.ndarray, faces: np.ndarray,
+                  target_faces: int):
+    """Vertex-clustering simplification (mesh_generation.py:229-252)."""
+    v = np.asarray(verts)
+    f = np.asarray(faces)
+    if len(f) <= target_faces or len(f) == 0:
+        return v, f
+    # shrink the cluster grid until the face budget is met
+    extent = v.max(0) - v.min(0)
+    n_cells = 64
+    new_v, new_f = v, f
+    for _ in range(8):
+        size = extent / n_cells
+        size[size <= 0] = 1.0
+        keys = np.floor((v - v.min(0)) / size).astype(np.int64)
+        uniq, inv, counts = np.unique(keys, axis=0, return_inverse=True,
+                                      return_counts=True)
+        acc = np.zeros((len(uniq), 3))
+        np.add.at(acc, inv, v)
+        new_v, new_f = repair_mesh(acc / counts[:, None], inv[f])
+        if len(new_f) <= target_faces or n_cells <= 2:
+            break
+        n_cells //= 2
+    return new_v, new_f
+
+
 def project_texture(verts: np.ndarray, cameras: Dict,
                     images: Dict[str, np.ndarray]) -> np.ndarray:
     """Per-vertex colors from the best-facing calibrated view
@@ -190,6 +217,39 @@ def mesh_quality(verts: np.ndarray, faces: np.ndarray) -> Dict:
     }
 
 
+def create_mesh_poisson(points: np.ndarray,
+                        normals: Optional[np.ndarray] = None,
+                        resolution: int = 96, device=None, **kw):
+    """Poisson surface reconstruction (mesh_generation.py:29-86).
+    Returns (vertices, faces). Spectral solve: see ops/implicit.py."""
+    from tpu3drec_torch.ops.implicit import poisson_mesh
+    m = poisson_mesh(points, normals, resolution=resolution, device=device,
+                     **kw)
+    return m["verts"], m["faces"]
+
+
+def create_mesh_ball_pivoting(points: np.ndarray,
+                              normals: Optional[np.ndarray] = None,
+                              radius: Optional[float] = None,
+                              resolution: int = 96, device=None, **kw):
+    """Ball-pivoting equivalent (mesh_generation.py:87-143).
+    Returns (vertices, faces): see ops/implicit.py."""
+    from tpu3drec_torch.ops.implicit import ball_pivot_mesh
+    m = ball_pivot_mesh(points, normals, radius=radius,
+                        resolution=resolution, device=device, **kw)
+    return m["verts"], m["faces"]
+
+
+def create_mesh_alpha_shape(points: np.ndarray, alpha: float = 0.03,
+                            resolution: int = 96, device=None):
+    """Alpha-shape-equivalent surface (mesh_generation.py:144-180).
+    Returns (vertices, faces): see ops/implicit.py."""
+    from tpu3drec_torch.ops.implicit import alpha_surface_mesh
+    m = alpha_surface_mesh(points, alpha, resolution=resolution,
+                           device=device)
+    return m["verts"], m["faces"]
+
+
 def mesh_volume(verts: np.ndarray, faces: np.ndarray) -> float:
     """SIGNED volume via the divergence theorem (sum of signed
     tetrahedra to the origin); meaningful for closed oriented meshes.
@@ -201,6 +261,38 @@ def mesh_volume(verts: np.ndarray, faces: np.ndarray) -> float:
         return 0.0
     a, b, c = v[f[:, 0]], v[f[:, 1]], v[f[:, 2]]
     return float(np.einsum("ij,ij->i", a, np.cross(b, c)).sum() / 6.0)
+
+
+def compare_meshes(verts1: np.ndarray, faces1: np.ndarray,
+                   verts2: np.ndarray, faces2: np.ndarray) -> Dict:
+    """Pairwise mesh comparison (mesh_generation.py:721-772): vertex /
+    face counts, volume, surface area, extents, each with mesh2/mesh1
+    ratios, same keys as the reference."""
+    if verts1 is None or verts2 is None:
+        return {"error": "One or both meshes are None"}
+    q1 = mesh_quality(verts1, faces1)
+    q2 = mesh_quality(verts2, faces2)
+    vol1 = abs(mesh_volume(verts1, faces1)) if q1.get("is_watertight") else 0.0
+    vol2 = abs(mesh_volume(verts2, faces2)) if q2.get("is_watertight") else 0.0
+    e1 = (np.asarray(verts1).max(0) - np.asarray(verts1).min(0)
+          if len(verts1) else np.zeros(3))
+    e2 = (np.asarray(verts2).max(0) - np.asarray(verts2).min(0)
+          if len(verts2) else np.zeros(3))
+    return {
+        "vertex_count": {"mesh1": len(verts1), "mesh2": len(verts2),
+                         "ratio": len(verts2) / max(1, len(verts1))},
+        "face_count": {"mesh1": len(faces1), "mesh2": len(faces2),
+                       "ratio": len(faces2) / max(1, len(faces1))},
+        "volume": {"mesh1": vol1, "mesh2": vol2,
+                   "ratio": vol2 / max(1e-10, vol1)},
+        "surface_area": {"mesh1": q1["surface_area"],
+                         "mesh2": q2["surface_area"],
+                         "ratio": q2["surface_area"]
+                         / max(1e-10, q1["surface_area"])},
+        "bounds": {"mesh1_extents": e1.tolist(),
+                   "mesh2_extents": e2.tolist(),
+                   "extents_ratio": (e2 / np.maximum(e1, 1e-10)).tolist()},
+    }
 
 
 def save_obj(path, verts: np.ndarray, faces: np.ndarray,

@@ -2,12 +2,14 @@
 outlier filters, normals, voxel downsampling, quality analytics, PLY
 export.
 
-Port of the pipeline's subset of `tpu3drec/ops/pointcloud.py`. kNN
-queries are chunked masked distance matrices on the device, in the
-reference's expanded |a|^2 + |b|^2 - 2ab form; the voxel-hash kNN,
-downsampling, clustering and analytics are host numpy (data-dependent
-sizes), copied from the reference. Not ported yet: farthest-point
-downsampling, ICP and cloud merging (multi-reference mode).
+Port of `tpu3drec/ops/pointcloud.py`. kNN queries are chunked masked
+distance matrices on the device, in the reference's expanded
+|a|^2 + |b|^2 - 2ab form; farthest-point downsampling and point-to-point
+ICP run on the points' device (Python loops over the reference's scans,
+no host sync inside; ICP's 3x3 SVD on the device too); the voxel-hash
+kNN, downsampling, clustering, analytics and the cloud merge's
+bookkeeping are host numpy (data-dependent sizes), copied from the
+reference.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from tpu3drec_torch.core.device import resolve_device
 
 _INF = 3.4e38
 
@@ -314,6 +318,72 @@ def voxel_knn_indices(points: np.ndarray, k: int,
     return idx_out, mask_out
 
 
+def farthest_point_downsample(points: torch.Tensor, mask: torch.Tensor,
+                              m: int) -> torch.Tensor:
+    """FPS indices (point_cloud_processing.py:528-616), O(m N) masked: the
+    first valid point, then each step the valid point farthest from the
+    chosen set (ties to the lowest index). The running index stays on the
+    device."""
+    n = points.shape[0]
+    dist = torch.full((n,), _INF, dtype=points.dtype, device=points.device)
+    last = torch.argmax(mask.to(torch.uint8)).reshape(1)
+    idx = [last]
+    for _ in range(m - 1):
+        d_new = torch.sum((points - points.index_select(0, last)) ** 2, dim=1)
+        dist = torch.minimum(dist, d_new)
+        last = torch.argmax(torch.where(mask, dist, -1.0)).reshape(1)
+        idx.append(last)
+    return torch.cat(idx)
+
+
+def _icp_step(src, dst, src_mask, dst_mask, dst2, R, t,
+              max_corr_dist: float, corr=None):
+    """One ICP iteration from (R, t): the nearest dst point `j` of every
+    moved src point (expanded-form distances; `dst2` is |dst|^2) and its
+    weight `w` (1 within `max_corr_dist`), unless `corr` gives (j, w),
+    then Kabsch by a 3x3 SVD. Returns (R, t, (j, w))."""
+    dev, dt = src.device, src.dtype
+    moved = src @ R.T + t
+    if corr is None:
+        d2 = (torch.sum(moved * moved, 1)[:, None] + dst2[None, :]
+              - 2.0 * moved @ dst.T)
+        d2 = torch.where(dst_mask[None, :], d2, _INF)
+        j = torch.argmin(d2, dim=1)
+        dmin = torch.gather(d2, 1, j[:, None])[:, 0]
+        w = (src_mask & (dmin <= max_corr_dist ** 2)).to(dt)
+    else:
+        j, w = corr
+    target = dst[j]
+    wsum = torch.clamp(torch.sum(w), min=1.0)
+    mu_s = torch.sum(moved * w[:, None], 0) / wsum
+    mu_d = torch.sum(target * w[:, None], 0) / wsum
+    Hm = ((moved - mu_s) * w[:, None]).T @ (target - mu_d)
+    U, _, Vt = torch.linalg.svd(Hm)
+    S = torch.diag(torch.stack([
+        torch.ones((), dtype=dt, device=dev),
+        torch.ones((), dtype=dt, device=dev),
+        torch.linalg.det(Vt.T @ U.T)]))
+    dR = Vt.T @ S @ U.T
+    return dR @ R, dR @ t + (mu_d - dR @ mu_s), (j, w)
+
+
+def icp_register(src: torch.Tensor, dst: torch.Tensor,
+                 src_mask: torch.Tensor, dst_mask: torch.Tensor,
+                 iters: int = 20, max_corr_dist: float = 0.5):
+    """Point-to-point ICP: returns (R, t) aligning src -> dst on their
+    device (Open3D registration_icp equivalent,
+    point_cloud_processing.py:153-264): `iters` steps of `_icp_step`
+    from the identity. dR does not depend on the SVD's signs, so
+    LAPACK's and cuSOLVER's bases give the same step."""
+    R = torch.eye(3, dtype=src.dtype, device=src.device)
+    t = torch.zeros(3, dtype=src.dtype, device=src.device)
+    dst2 = torch.sum(dst * dst, 1)
+    for _ in range(iters):
+        R, t, _ = _icp_step(src, dst, src_mask, dst_mask, dst2, R, t,
+                            max_corr_dist)
+    return R, t
+
+
 def nearest_neighbor_stats(points: np.ndarray, sample: int = 1000) -> Dict:
     """Nearest-neighbour density statistics on a subsample, via the
     voxel-hash kNN."""
@@ -428,6 +498,56 @@ def point_cloud_quality(points: np.ndarray,
             "brightness_range": [float(c.min()), float(c.max())],
         }
     return metrics
+
+
+def merge_point_clouds(clouds, registration: str = "icp",
+                       max_corr_dist: Optional[float] = None,
+                       icp_max_points: int = 4096, device=None):
+    """Chain per-view clouds into one, ICP-registering each onto the
+    accumulated cloud (reference merge_point_clouds,
+    point_cloud_processing.py:153-264). `clouds` is a list of
+    (points (N, 3), colors (N, 3) or None) host arrays.
+
+    Registration runs `icp_register` on `device` (None means CUDA) on
+    random subsamples of at most `icp_max_points` each (numpy
+    default_rng(0), drawn as the reference draws them) and applies the
+    recovered rigid transform to the full cloud on the host.
+    registration='none' just concatenates."""
+    clouds = [c for c in clouds if len(np.asarray(c[0])) > 0]
+    if not clouds:
+        return np.zeros((0, 3), np.float32), None
+    dev = resolve_device(device) if registration == "icp" else None
+    merged_p = np.asarray(clouds[0][0], np.float32).reshape(-1, 3)
+    merged_c = None if clouds[0][1] is None else np.asarray(clouds[0][1])
+    rng = np.random.default_rng(0)
+    for pts, cols in clouds[1:]:
+        pts = np.asarray(pts, np.float32).reshape(-1, 3)
+        if registration == "icp":
+            if max_corr_dist is None:
+                nn = nearest_neighbor_stats(merged_p)
+                mcd = 10.0 * nn.get("median_nearest_distance", 0.05)
+            else:
+                mcd = max_corr_dist
+            sub_s = (pts if len(pts) <= icp_max_points else
+                     pts[rng.choice(len(pts), icp_max_points,
+                                    replace=False)])
+            sub_t = (merged_p if len(merged_p) <= icp_max_points else
+                     merged_p[rng.choice(len(merged_p), icp_max_points,
+                                         replace=False)])
+            R, t = icp_register(
+                torch.from_numpy(np.ascontiguousarray(sub_s)).to(dev),
+                torch.from_numpy(np.ascontiguousarray(sub_t)).to(dev),
+                torch.ones(len(sub_s), dtype=torch.bool, device=dev),
+                torch.ones(len(sub_t), dtype=torch.bool, device=dev),
+                max_corr_dist=float(mcd))
+            R, t = R.cpu().numpy(), t.cpu().numpy()
+            pts = pts @ R.T + t
+        merged_p = np.vstack([merged_p, pts])
+        if cols is not None:
+            cols = np.asarray(cols)
+            merged_c = cols if merged_c is None else np.vstack([merged_c,
+                                                                cols])
+    return merged_p, merged_c
 
 
 def save_ply(path, points: np.ndarray, colors: Optional[np.ndarray] = None,

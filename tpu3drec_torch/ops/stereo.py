@@ -1,8 +1,8 @@
-"""Stereo depth on rectified pairs: rectification, cost volumes, SGM
-aggregation, winner-take-all with left-right check, un-rectification and
-multi-view depth fusion.
+"""Stereo depth: rectification, cost volumes, SGM aggregation,
+winner-take-all with left-right check, un-rectification, multi-view
+depth fusion, and plane-sweep stereo for unrectified pairs.
 
-Port of the rectified path of `tpu3drec/ops/stereo.py`. The 3x3 camera
+Port of `tpu3drec/ops/stereo.py`. The 3x3 camera
 math (rectifying homographies, baselines, ray factors) is float32 work
 on the host, in the reference's order of operations; grids, warps,
 volumes and everything per pixel run on the images' device. Every pair
@@ -10,23 +10,30 @@ of a block goes through each stage together: one batched gather per
 warp, one (N, D, H, W) cost volume, SGM over all 2N volumes in chunks
 of `_SGM_MEGABATCH` (`ops/pallas_sgm.py`: the `sgm` kernel on the card,
 its plain version on the CPU). Warps are the plain four-tap gather; the
-reference's TPU band warp has no counterpart. Not ported yet: the plane
-sweep, its validity test and the blockwise sweep.
+reference's TPU band warp has no counterpart.
+
+The plane sweep (`plane_sweep_depth`) warps the neighbour view by every
+plane's homography in one batched gather, aggregates the (D, H, W)
+volume through the same `sgm` route and picks depth by WTA; its
+blockwise form keeps an O(H W) carry on the device instead of the volume
+(a Python loop over the planes in slabs, no host sync inside).
 
 The stages run under profiler ranges `dense.rectify`, `dense.cost`,
-`dense.sgm`, `dense.wta_lr`, `dense.unrectify` and `dense.fuse`.
+`dense.sgm`, `dense.wta_lr`, `dense.unrectify`, `dense.fuse` and, in the
+plane sweep, `dense.sweep_cost`.
 """
 
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Tuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
 from tpu3drec_torch.ops.image import (
-    central_gradients, grid_in_bounds, homography_grid, sample_grid,
-    to_device,
+    box_filter, central_gradients, grid_in_bounds, homography_grid,
+    sample_grid, to_device, warp_perspective,
 )
 from tpu3drec_torch.ops.pallas_sgm import sgm_aggregate_batch
 
@@ -344,3 +351,190 @@ def fuse_depth_maps(depths: torch.Tensor, valids: torch.Tensor, baselines,
         raise ValueError(f"unknown fusion method {method!r}")
     any_valid = torch.any(valids, dim=0)
     return torch.where(any_valid, fused, 0.0), any_valid
+
+
+# ---------------------------------------------------------------------
+# plane sweep for unrectified pairs
+# ---------------------------------------------------------------------
+
+def box_blur(img: torch.Tensor, size: int) -> torch.Tensor:
+    """Separable mean filter of `(..., H, W)` (cost aggregation)."""
+    if size <= 1:
+        return img
+    return box_filter(img, size)
+
+
+def _fma32(a, b, c) -> np.ndarray:
+    """float32 a * b + c rounded once (the product of two float32 values
+    is exact in float64; the sum is rounded twice, which moves the result
+    only on a float32 tie)."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(np.float32)
+
+
+def plane_inv_depths(min_depth: float, max_depth: float,
+                     num_planes: int) -> torch.Tensor:
+    """The plane sweep's inverse depths, 1/min_depth down to 1/max_depth,
+    float32 on the host, bit-equal to the reference's
+    `jnp.linspace(1 / min_depth, 1 / max_depth, n)` as XLA:CPU compiles
+    it: the step division becomes a multiply by the float32 reciprocal of
+    n - 1, `stop * step` is reassociated to `i * (stop * c)`, and the sum
+    is contracted to a fused multiply-add on that product. Loops of up to
+    33 steps are unrolled, which folds `1 * (stop * c)` at i = 1 and
+    contracts the other product there."""
+    one = np.float32(1.0)
+    start = one / np.float32(min_depth)
+    stop = one / np.float32(max_depth)
+    n = int(num_planes)
+    if n <= 1:
+        return torch.from_numpy(np.full(max(n, 0), start, np.float32))
+    div = n - 1
+    c = one / np.float32(div)
+    i = np.arange(div, dtype=np.float32)
+    sub = one - i * c
+    out = _fma32(i, stop * c, start * sub)
+    if div > 1 and div <= 33:
+        out[1] = _fma32(start, sub[1], stop * c)
+    return torch.from_numpy(np.append(out, stop).astype(np.float32))
+
+
+def _plane_costs(ref: torch.Tensor, other: torch.Tensor, K_ref, K_other, R,
+                 t, inv_d: torch.Tensor, cost_window: int) -> torch.Tensor:
+    """(S, H, W) window-aggregated |ref - warped other| for the planes at
+    host inverse depths `inv_d` (S,): every plane's homography
+    H_d = K_o (R + t n^T d^-1) K_ref^-1 in float32 on the host, all warps
+    in one batched gather. As in the reference, H_d is inverted here and
+    again inside the warp (out(p) = other(H_d p))."""
+    h, w = ref.shape[-2:]
+    K_ref, K_other, R, t = (_host(a) for a in (K_ref, K_other, R, t))
+    n = torch.tensor([0.0, 0.0, 1.0])
+    Hs = K_other @ (R + torch.outer(t, n) * inv_d[:, None, None]) \
+        @ torch.linalg.inv(K_ref)
+    warped = warp_perspective(other.expand(inv_d.shape[0], h, w),
+                              torch.linalg.inv(Hs), (h, w))
+    return box_blur(torch.abs(ref - warped), cost_window)
+
+
+def plane_sweep_depth(ref: torch.Tensor, other: torch.Tensor, K_ref, K_other,
+                      R, t, min_depth: float, max_depth: float,
+                      num_planes: int = 64, cost_window: int = 5,
+                      max_cost: float = 0.15,
+                      uniqueness_ratio: float = 10.0) -> StereoResult:
+    """Plane-sweep stereo for UNRECTIFIED (H, W) pairs: for each
+    fronto-parallel depth plane the neighbour view is warped into the
+    reference frame by the plane-induced homography, the cost is a
+    window-aggregated absolute difference, and SGM aggregation + subpixel
+    WTA pick the depth. Planes are uniform in inverse depth.
+
+    (R, t): pose of `other` relative to `ref` (x_o = R x_r + t). Runs on
+    the images' device; the (D, H, W) volume goes through `sgm`."""
+    inv_depths = plane_inv_depths(min_depth, max_depth, num_planes)
+    with record_function("dense.sweep_cost"):
+        volume = _plane_costs(ref, other, K_ref, K_other, R, t, inv_depths,
+                              cost_window)
+    with record_function("dense.sgm"):
+        agg = sgm_aggregate(volume)
+    with record_function("dense.wta_lr"):
+        idx, _ = winner_take_all(agg)
+        inv_dev = to_device(inv_depths, ref.device)
+        frac, depth = _interp_depth(idx, inv_dev, num_planes)
+        # validity: the best RAW cost clears an absolute photometric
+        # threshold, and the best aggregated cost beats every
+        # non-neighbouring plane by uniqueness_ratio percent
+        valid = _sweep_validity(volume, agg, max_cost, uniqueness_ratio)
+    return StereoResult(disparity=frac, depth=torch.where(valid, depth, 0.0),
+                        valid=valid)
+
+
+def _interp_depth(idx: torch.Tensor, inv_depths: torch.Tensor,
+                  num_planes: int):
+    """Clipped fractional plane index and the depth at it, interpolated in
+    inverse depth."""
+    frac = torch.clamp(idx, 0, num_planes - 1)
+    i0 = torch.clamp(torch.floor(frac).to(torch.int64), 0, num_planes - 2)
+    f = frac - i0
+    inv_depth = inv_depths[i0] * (1 - f) + inv_depths[i0 + 1] * f
+    return frac, 1.0 / torch.clamp(inv_depth, min=1e-9)
+
+
+def _sweep_validity(raw_vol: torch.Tensor, agg_vol: torch.Tensor, max_cost,
+                    uniqueness_ratio, agg_floor: float = 0.2) -> torch.Tensor:
+    """Absolute-threshold + uniqueness validity for plane sweeps (cv2
+    SGBM's uniquenessRatio analogue): the best raw cost under `max_cost`,
+    and the best aggregated cost beating every plane outside its +-1
+    neighbours by `uniqueness_ratio` percent (floored at `agg_floor`)."""
+    best_raw = torch.amin(raw_vol, dim=0)
+    best_agg, bi = torch.min(agg_vol, dim=0)
+    di = torch.arange(agg_vol.shape[0], device=agg_vol.device)[:, None, None]
+    excl = torch.abs(di - bi[None]) <= 1
+    second = torch.amin(torch.where(excl, 3.4e38, agg_vol), dim=0)
+    margin = (uniqueness_ratio / 100.0) * torch.clamp(best_agg, min=agg_floor)
+    return (best_raw < max_cost) & (second - best_agg >= margin)
+
+
+def plane_sweep_depth_blockwise(ref: torch.Tensor, other: torch.Tensor, K_ref,
+                                K_other, R, t, min_depth: float,
+                                max_depth: float, num_planes: int = 64,
+                                slab: int = 8, cost_window: int = 5,
+                                max_cost: float = 0.15,
+                                uniqueness_ratio: float = 10.0
+                                ) -> StereoResult:
+    """Blockwise plane sweep: the (D, H, W) cost volume never exists. The
+    planes run in slabs of `slab` (each slab's warps batched) with an
+    O(H W) carry on the device: the running best cost and plane, a
+    streaming second best outside the winner's +-1 neighbours, and the
+    costs of the planes before and after the winner (the previous plane's
+    cost carried across slabs), so the parabolic subpixel step equals the
+    full-volume WTA's. No SGM: it needs the whole volume."""
+    if num_planes % slab:
+        raise ValueError("num_planes must be a multiple of slab")
+    h, w = ref.shape
+    dev = ref.device
+    inv_depths = plane_inv_depths(min_depth, max_depth, num_planes)
+    big = 1e30
+    best = torch.full((h, w), big, device=dev)
+    best_i = torch.full((h, w), -1, dtype=torch.int32, device=dev)
+    best2 = torch.full((h, w), big, device=dev)
+    c_before = torch.full((h, w), big, device=dev)
+    c_after = torch.full((h, w), big, device=dev)
+    c_prev = torch.full((h, w), big, device=dev)
+    for s in range(0, num_planes, slab):
+        with record_function("dense.sweep_cost"):
+            costs = _plane_costs(ref, other, K_ref, K_other, R, t,
+                                 inv_depths[s:s + slab], cost_window)
+        for k in range(slab):
+            c, i = costs[k], s + k
+            take = c < best
+            # streaming second best EXCLUDING the winner's +-1
+            # neighbours: when the winner moves here from a non-adjacent
+            # plane the old winner becomes eligible; non-winning
+            # non-adjacent planes compete directly
+            old_nonadj = (i - best_i) > 1
+            best2 = torch.where(
+                take, torch.where(old_nonadj, torch.minimum(best2, best),
+                                  best2),
+                torch.where(old_nonadj, torch.minimum(best2, c), best2))
+            # the plane right after the current best fills its c_after slot
+            c_after = torch.where(~take & (best_i + 1 == i), c, c_after)
+            c_before = torch.where(take, c_prev, c_before)
+            c_after = torch.where(take, big, c_after)
+            best_i = torch.where(take, i, best_i)
+            best = torch.where(take, c, best)
+            c_prev = c
+
+    # parabolic subpixel around the winning plane (exact vs full volume)
+    has_nb = ((best_i > 0) & (best_i < num_planes - 1)
+              & (c_before < big / 2) & (c_after < big / 2))
+    denom = c_before - 2.0 * best + c_after
+    big_d = torch.abs(denom) > 1e-12
+    delta = torch.where(has_nb & big_d, 0.5 * (c_before - c_after)
+                        / torch.where(big_d, denom, 1.0), 0.0)
+    frac, depth = _interp_depth(
+        best_i.to(torch.float32) + torch.clamp(delta, -0.5, 0.5),
+        to_device(inv_depths, dev), num_planes)
+    # absolute photometric gate + streaming uniqueness (raw-cost units;
+    # the floor is the raw-scale analogue of _sweep_validity's)
+    margin = (uniqueness_ratio / 100.0) * torch.clamp(best, min=0.02)
+    valid = (best < max_cost) & (best2 - best >= margin)
+    return StereoResult(disparity=frac, depth=torch.where(valid, depth, 0.0),
+                        valid=valid)

@@ -11,12 +11,18 @@ two packages.
 Stereo, fusion, backprojection, outlier filtering, normals and the TSDF
 fusion run on the pipeline's device; the voxel-hash kNN, analytics,
 marching tetrahedra and mesh post-processing are host numpy, as in the
-reference. Besides the stereo stage's ranges (`ops/stereo.py`), the
+reference. The mesh is a TSDF (default), an implicit surface of the
+cloud (`mesh_method` "poisson", "ball_pivot" or "alpha", `ops/implicit.py`,
+its fields on the pipeline's device) or a depth-grid mesh;
+`run_multi_reference` merges one cloud per reference view by ICP and
+meshes the union. A degenerate cloud (an empty mesh, or too few points
+for numpy: `ValueError` / `IndexError`) degrades to the reference's
+depth-grid or Delaunay mesh; a `RuntimeError` (a CUDA or kernel fault)
+propagates. Besides the stereo stage's ranges (`ops/stereo.py`), the
 later stages run under profiler ranges `dense.outliers`,
 `dense.normals`, `dense.cloud_quality`, `dense.mesh_extract` and
-`dense.mesh_post`. Not ported yet (ROADMAP.md): the implicit mesh methods
-(poisson / ball_pivot / alpha), `run_multi_reference` and the sharded
-multi-card stereo branch; each raises NotImplementedError.
+`dense.mesh_post`. Not ported yet (ROADMAP.md Queue 1 #7): the sharded
+multi-card stereo branch, which raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from torch.profiler import record_function
 from tpu3drec_torch.core.device import resolve_device
 from tpu3drec_torch.ops import mesh as mesh_ops
 from tpu3drec_torch.ops import pointcloud as pc
+from tpu3drec_torch.ops.implicit import _median_nn_spacing
 from tpu3drec_torch.ops.stereo import (
     fuse_depth_blocks, stereo_depth_pairs_block, stereo_depth_pairs_fused,
 )
@@ -41,6 +48,9 @@ from tpu3drec_torch.ops.tsdf import tsdf_mesh
 _IMPLICIT = ("poisson", "ball_pivot", "alpha")
 _FUSED_MAX = 6   # neighbour views fused in one call up to here
 _CHUNK = 4       # block size for larger folders
+# what numpy raises on a degenerate cloud (no points, too few to mesh):
+# the reference's degraded modes catch these, a RuntimeError propagates
+_DEGENERATE = (ValueError, IndexError)
 
 
 def validate_sparse_input(sparse: Dict) -> List[str]:
@@ -61,7 +71,8 @@ def validate_sparse_input(sparse: Dict) -> List[str]:
 
 class DenseReconstructionPipeline:
     """Pairwise SGM stereo against a reference view, fusion, point cloud
-    with normals and analytics, and a TSDF (or depth-grid) mesh.
+    with normals and analytics, and a TSDF, implicit-surface or
+    depth-grid mesh.
 
     `device=None` means CUDA and raises without a card; pass
     device="cpu" to run the plain versions of the kernels on the CPU."""
@@ -76,17 +87,14 @@ class DenseReconstructionPipeline:
                  max_cloud_points: int = 200_000,
                  use_sharded_stereo: bool = True,
                  device=None):
-        if mesh_method in _IMPLICIT:
-            raise NotImplementedError(
-                f"mesh_method={mesh_method!r} needs ops/implicit.py, not "
-                f"ported yet (ROADMAP.md Queue 1 #5)")
         self.device = resolve_device(device)
         self.use_sharded_stereo = use_sharded_stereo
         self.num_disparities = num_disparities
         self.fusion_method = fusion_method
         self.voxel_size = voxel_size
-        # "tsdf" = volumetric fusion + marching tetrahedra; "depth_grid" =
-        # 2.5D reference-view grid mesh (also the no-valid-depth fallback)
+        # "tsdf" = volumetric fusion + marching tetrahedra; "poisson",
+        # "ball_pivot", "alpha" = implicit surfaces of the cloud;
+        # "depth_grid" = 2.5D reference-view grid mesh (also the fallback)
         self.mesh_method = mesh_method
         self.mesh_stride = mesh_stride
         self.tsdf_resolution = tsdf_resolution
@@ -222,8 +230,13 @@ class DenseReconstructionPipeline:
                                t_ref.astype(np.float32),
                                resolution=self.tsdf_resolution, device=dev)
                 verts, faces = tm["verts"], tm["faces"]
+            elif self.mesh_method in _IMPLICIT:
+                verts, faces = self._implicit_mesh(pts_np, normals_np)
+                if len(faces) == 0:
+                    mesh_method_used = "depth_grid"
             else:
                 mesh_method_used = "depth_grid"   # or nothing valid to fuse
+            if mesh_method_used == "depth_grid":
                 verts, faces = mesh_ops.depth_map_to_mesh(
                     fused_np, K_ref, R_ref, t_ref, valid=fused_valid_np,
                     stride=self.mesh_stride)
@@ -273,13 +286,100 @@ class DenseReconstructionPipeline:
                         "vertices": verts, "faces": faces}
         return results
 
+    def _implicit_mesh(self, pts_np: np.ndarray, normals_np: np.ndarray):
+        """The implicit-surface mesh of the cloud at `tsdf_resolution`;
+        an empty one where numpy finds the cloud degenerate."""
+        dev = self.device
+        # no normals where the voxel downsample broke lockstep
+        nrm = normals_np if len(normals_np) == len(pts_np) else None
+        try:
+            if self.mesh_method == "poisson":
+                return mesh_ops.create_mesh_poisson(
+                    pts_np, nrm, resolution=self.tsdf_resolution, device=dev)
+            if self.mesh_method == "ball_pivot":
+                return mesh_ops.create_mesh_ball_pivoting(
+                    pts_np, nrm, resolution=self.tsdf_resolution, device=dev)
+            return mesh_ops.create_mesh_alpha_shape(
+                pts_np, alpha=max(3.0 * _median_nn_spacing(pts_np), 1e-6),
+                resolution=self.tsdf_resolution, device=dev)
+        except _DEGENERATE:
+            return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int64)
+
     # ------------------------------------------------------------------
     def run_multi_reference(self, sparse: Dict, images: Dict[str, np.ndarray],
                             num_refs: int = 2, output_dir=None) -> Dict:
-        """Multi-reference mode (ICP-merged per-reference clouds)."""
-        raise NotImplementedError(
-            "run_multi_reference needs ICP merging and the implicit mesh "
-            "methods, not ported yet (ROADMAP.md Queue 1 #5)")
+        """Multi-reference-view dense mode: one cloud per reference view
+        (spread across the folder), each from the standard fused stereo
+        pipeline and already in world coordinates, chained through
+        `ops.pointcloud.merge_point_clouds` with ICP absorbing the small
+        residual misalignments, then meshed with an implicit method:
+        ball pivoting where `mesh_method` is "ball_pivot" or "alpha" (as
+        the reference does), else Poisson; Delaunay where the merged
+        cloud is degenerate."""
+        cams = sparse.get("camera_poses") or sparse["cameras"]
+        names = [n for n in cams if n in images]
+        if len(names) < 2:
+            raise ValueError("need >= 2 posed images")
+        dev = self.device
+        num_refs = max(1, min(num_refs, len(names)))
+        refs = [names[int(round(i * (len(names) - 1) / max(num_refs - 1, 1)))]
+                for i in range(num_refs)]
+        refs = list(dict.fromkeys(refs))
+        t0 = time.perf_counter()
+        clouds, per_ref = [], {}
+        for ref in refs:
+            res = self.run_complete_pipeline(sparse, images,
+                                             reference_view=ref)
+            clouds.append((self._arrays["points"], self._arrays["colors"]))
+            per_ref[ref] = {
+                "num_points": int(len(self._arrays["points"])),
+                "valid_fraction": res["depth"]["valid_fraction"],
+            }
+        merged_p, merged_c = pc.merge_point_clouds(clouds, registration="icp",
+                                                   device=dev)
+        if self.voxel_size:
+            merged_p, merged_c = pc.voxel_downsample(merged_p,
+                                                     self.voxel_size, merged_c)
+        quality = pc.point_cloud_quality(merged_p, colors=merged_c)
+        mesh_method = (self.mesh_method if self.mesh_method in _IMPLICIT
+                       else "poisson")
+        try:
+            pts_t = torch.from_numpy(np.asarray(merged_p, np.float32)).to(dev)
+            nrm = pc.estimate_normals_scaled(
+                pts_t, torch.ones(len(merged_p), dtype=torch.bool,
+                                  device=dev)).cpu().numpy()
+            verts, faces = mesh_ops.create_mesh_poisson(
+                merged_p, nrm, resolution=self.tsdf_resolution, device=dev) \
+                if mesh_method == "poisson" else \
+                mesh_ops.create_mesh_ball_pivoting(
+                    merged_p, nrm, resolution=self.tsdf_resolution,
+                    device=dev)
+            if len(faces) == 0:
+                raise ValueError("empty mesh")
+        except _DEGENERATE:
+            mesh_method = "delaunay"
+            verts, faces = mesh_ops.delaunay_mesh(merged_p)
+        verts, faces = mesh_ops.repair_mesh(verts, faces)
+        results = {
+            "mode": "multi_reference",
+            "reference_views": refs,
+            "per_reference": per_ref,
+            "point_cloud": {"num_points": int(len(merged_p)), **quality},
+            "mesh": {"method": mesh_method,
+                     **mesh_ops.mesh_quality(verts, faces)},
+            "timings_s": {"total": time.perf_counter() - t0},
+        }
+        if output_dir is not None:
+            out = Path(output_dir)
+            out.mkdir(parents=True, exist_ok=True)
+            pc.save_ply(out / "point_cloud_merged.ply", merged_p, merged_c)
+            mesh_ops.save_obj(out / "mesh_merged.obj", verts, faces)
+            (out / "dense_report.json").write_text(
+                json.dumps(results, indent=2, default=str))
+            results["output_dir"] = str(out)
+        self._arrays = {"points": merged_p, "colors": merged_c,
+                        "vertices": verts, "faces": faces}
+        return results
 
 
 def run_dense_reconstruction(sparse_reconstruction: Dict,
