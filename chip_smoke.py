@@ -77,8 +77,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
      engine fallback, failed pair or method error. The first batch of 8
      pairs on the card against the CPU plain path (the same pairs, raw
      match counts within max(2, 2%), the same best method where the CPU's
-     scores differ by more than 0.02), the CPU's SfM on the card's
-     matches, the dense stage on a 7-view cut of the card's registered
+     scores differ by more than 0.02), the card's SfM again on the
+     steady run's matches (the same views, points and poses, bit for
+     bit), the CPU's SfM on the card's matches, the dense stage on a 7-view cut of the card's registered
      views (card and CPU), the views a 4-view cut registers on both, and
      `knn2` on one batch's ORB operands bit for bit against its plain
      version, twice, timed beside its bound;
@@ -127,9 +128,30 @@ Phases, each of which raises (and so exits non-zero) on failure:
      step by step (correspondences equal but for near-ties within the
      rounding window, Kabsch on the card's correspondences within
      1e-3 deg and 1e-4 of the extent; the end-to-end gap printed);
-  10. one JSON line with every kernel's launches (by path), error, time,
+  10. the deep models on phase 7's folder, with random full-width
+     parameters from a seeded generator written as converted
+     checkpoints into a temporary directory (the phase points
+     `models.WEIGHTS_DIR` there and restores it): SuperPoint, DISK,
+     ALIKED-n16 and LightGlue (dim 256, 9 layers) for 256-d and 128-d
+     descriptors. `create_pipeline("deep_learning").match_folder` at its
+     defaults (SuperPoint + DISK, consecutive pairs, 8 a batch; kNN
+     through `knn2`'s float32 path, its launches counted by method and
+     the first batch's operands kept), cold then timed: images/s,
+     pairs/s, each detector's seconds on one batch, a profiled batch;
+     the per-pair path with LightGlue on 3 pairs with SuperPoint, DISK
+     and ALIKED-n16, LightGlue's ms per pair at 2,048 keypoints and a
+     profiled call; SuperPoint and DISK on two images and LightGlue on
+     their pair, card against the CPU plain path at "highest" (the same
+     clear keypoints, scores and descriptors within the CPU tests' bars,
+     log-assignment within 8x the CPU's own float32 error against a
+     float64 run, matches equal off near-ties) and at "default" (TF32:
+     differences printed, LightGlue's match count within 5%); `knn2`'s
+     float32 kernel at the SuperPoint (x 256) and DISK (x 128) operands
+     against its plain version, timed beside its bound and f32 `bmm` +
+     topk. SfM and dense are not run on random features;
+  11. one JSON line with every kernel's launches (by path), error, time,
      bound and the plain and library yardsticks; each phase's seconds;
-  11. last line: {"ok": true, "device": {...}}.
+  12. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or without the package beside it, it fails before printing
 any result. It imports nothing of JAX.
@@ -299,6 +321,39 @@ SWEEP_H, SWEEP_W, SWEEP_PLANES = 480, 640, 64
 SWEEP_F, SWEEP_B = 500.0, 0.4   # tests/test_plane_sweep.py's scene x5
 SWEEP_VALID_BAR = 0.3         # the test's own bars
 SWEEP_REL_ERR_BAR = 0.08
+
+# phase 10: the deep models on phase 7's folder, with random full-width
+# parameters from one seeded generator (no checkpoint can be fetched):
+# SuperPoint (2,048 features, NMS 4, threshold 0.005), DISK (128-d),
+# ALIKED-n16 and LightGlue (dim 256, 9 layers, 4 heads) for 256-d and
+# 128-d descriptors. The folder engine at the `deep_learning` preset's
+# defaults (consecutive pairs, window 1, 8 pairs a batch) matches both
+# methods by kNN (knn2's float32 path), as the reference's engine does;
+# LightGlue runs on the per-pair path. Random features carry no
+# geometry, so SfM and dense are not run on them. The card is held to the
+# CPU plain path at matmul_precision "highest" with the CPU tests' bars
+# (tests/test_torch_models.py): scores within DEEP_SCORE_BAR (DISK's
+# relative to its heat's largest magnitude), keypoints the same where a
+# score clears its window neighbours, the k-th score and the threshold by
+# more than that, descriptors at cosine > DEEP_COS_BAR; LightGlue's
+# log-assignment within DEEP_LG_ERR_X times the CPU's own float32 error
+# (against a float64 run of the same network and inputs: two float32
+# runs sit within twice it, and the card sums in other orders), matches
+# equal away from near-ties. At "default" (TF32) the differences are
+# printed, and LightGlue's mutual matches over the per-pair path's pairs
+# with both detectors (~150 with these weights, so that 5% is several
+# matches) held within DEEP_TF32_COUNT_RTOL of the count at "highest"
+DEEP_PRESET = "deep_learning"
+DEEP_SEED = 10
+DEEP_LG = dict(dim=256, n_layers=9, heads=4)
+DEEP_PERPAIR = 3              # pairs through the per-pair path
+DEEP_PERPAIR_METHODS = ("SuperPoint", "DISK", "ALIKED")
+DEEP_SCORE_BAR = {"SuperPoint": 1e-7, "DISK": 5e-5}
+DEEP_COS_BAR = 0.9999
+DEEP_LG_ERR_X = 8.0
+DEEP_TF32_COUNT_RTOL = 0.05
+DEEP_DEPTH_METHOD = {256: "SuperPoint", 128: "DISK"}
+KNN2_F32_TOL = 1e-4           # csrc/knn2.cu's stated float32 bar
 
 # NVIDIA H100 SXM data-sheet peaks (dense)
 PEAK_BYTES_PER_S = 3.35e12
@@ -1554,8 +1609,8 @@ def run_sfm(torch, card, dev):
             ("dryrun problem (6 cams / 400 pts / 1,600 obs, CG)", 6,
              tv.BAConfig(max_iters=3, schur_solver="cg", cg_iters=24, ftol=0.0)),
             # 6 iterations: later ones sit on the cost's float32 noise
-            # floor, where another summation order (the card's atomics)
-            # moves this window's cameras by ~1e-3
+            # floor, where another summation order (the card's chunked
+            # segment sums) moves this window's cameras by ~1e-3
             ("3-camera window (dense Schur)", 3,
              tv.BAConfig(max_iters=6, schur_solver="dense"))):
         arrays = small_ba_problem(C, 11)
@@ -1993,6 +2048,9 @@ def run_folder(torch, card, dev, tmp, names, Rs):
         fail("the folder chain did not run knn2 on both the SIFT and "
              "the ORB input")
     folder_checks(res, "cold")
+    cold_names = sorted(res["reconstruction"].cameras)
+    cold_views = res["reconstruction"].num_cameras
+    cold_points = res["reconstruction"].num_points
 
     # the steady run; spies keep what its SfM and dense stages were
     # handed, for the CPU plain path below
@@ -2056,25 +2114,41 @@ def run_folder(torch, card, dev, tmp, names, Rs):
              f"{FOLDER_CLOUD_BAR} cloud points or the fused depth valid "
              f"on no more than {FOLDER_VALID_BAR} of the reference view")
 
-    # the SfM stage on the CPU plain path, on the card's own matches:
-    # the card's matches must carry the CPU's SfM over the same bars,
-    # and the two must agree on the median relative rotation of the
-    # neighbouring views both registered. Which weak views register,
-    # and how far off, turns on float order on both devices (the CPU's
-    # own runs differ with its thread count, the card's with its
-    # atomics), so the views and the worst pair are compared, not held
-    # equal
+    # the card's SfM again on the steady run's matches: BA sums its
+    # segments in a fixed order on the card (ops/ba.py), so the same
+    # matches give the same reconstruction, camera for camera (with float
+    # atomics there, 23 and 24 views came out of one set of matches)
     md, info = handed.pop("sfm")
     _, ra, _ = sfm_pipeline_run(torch, md, info, dev)
     rot_a = consecutive_rotation_errors(ra, Rs, names)
+    same_views = sorted(ra.cameras) == sorted(recon.cameras)
+    dpose = max((float(np.abs(ra.cameras[n].R - recon.cameras[n].R).max()
+                       + np.abs(ra.cameras[n].t - recon.cameras[n].t).max())
+                 for n in recon.cameras), default=0.0) \
+        if same_views else np.inf
     print(f"folder chain SfM, the card again on the same matches: "
           f"{ra.num_cameras} views (missing "
           f"{sorted(set(names) - set(ra.cameras))}), {ra.num_points} "
           f"points, {100 * float(np.mean(rot_a < FOLDER_ROT_BAR_DEG)):.1f}% "
-          f"within {FOLDER_ROT_BAR_DEG} deg (the steady run: "
-          f"{recon.num_cameras} views, {recon.num_points} points; BA's "
-          f"segment sums are float atomics on the card)")
+          f"within {FOLDER_ROT_BAR_DEG} deg; the steady run: "
+          f"{recon.num_cameras} views, {recon.num_points} points; largest "
+          f"pose difference {dpose:.3e}; the cold run (its own matching): "
+          f"{cold_views} views, {cold_points} points, "
+          f"{'the same' if cold_names == sorted(recon.cameras) else 'other'}"
+          f" views")
+    if not same_views or ra.num_points != recon.num_points or dpose != 0.0:
+        fail("folder chain: the card's SfM on the same matches gave "
+             "another reconstruction")
     del ra
+
+    # the SfM stage on the CPU plain path, on the card's own matches:
+    # the card's matches must carry the CPU's SfM over the same bars,
+    # and the two must agree on the median relative rotation of the
+    # neighbouring views both registered. Which weak views register,
+    # and how far off, turns on float order (the CPU's own runs differ
+    # with its thread count, and cuSOLVER's null-space basis is not
+    # LAPACK's), so the views and the worst pair are compared, not held
+    # equal
     t0 = time.perf_counter()
     _, rh, _ = sfm_pipeline_run(torch, md, info, cpu)
     sfm_cpu_s = time.perf_counter() - t0
@@ -2938,6 +3012,414 @@ def run_dense_rest(torch, card, dev, sparse, images):
              "sweep_blockwise_ms": sweep["blockwise"]})
 
 
+def deep_weights(torch, path):
+    """Random full-width networks from one seeded CPU generator, written
+    through `models._params` as the JAX package's converters write them
+    (SuperPoint, DISK, ALIKED-n16 as aliked.npz, LightGlue for 256-d and
+    128-d descriptors). Returns the networks (on the CPU)."""
+    from tpu3drec_torch.models import aliked_n16, disk, lightglue, superpoint
+    gen = torch.Generator().manual_seed(DEEP_SEED)
+    nets = {"SuperPoint": superpoint.SuperPoint().init_random(gen),
+            "DISK": disk.DISK().init_random(gen),
+            "ALIKED": aliked_n16.ALIKEDN16().init_random(gen)}
+    superpoint.save_weights(nets["SuperPoint"], path / "superpoint.npz")
+    disk.save_weights(nets["DISK"], path / "disk.npz")
+    aliked_n16.save_weights(nets["ALIKED"], path / "aliked.npz")
+    for d in (256, 128):
+        nets[f"lightglue_d{d}"] = net = lightglue.LightGlue(
+            input_dim=d, **DEEP_LG).init_random(gen)
+        lightglue.save_weights(net, path / f"lightglue_d{d}.npz")
+    return nets
+
+
+def deep_extract(torch, method, net, imgs, precision):
+    """(Features, the score map before NMS, read off the network's
+    output) of the registry's extractor for `method` at the preset's
+    parameters around `net`."""
+    from tpu3drec_torch.models import disk, superpoint
+    if method == "SuperPoint":
+        ext = superpoint.SuperPoint(net, max_features=MAX_FEATURES,
+                                    keypoint_threshold=0.005, nms_radius=4,
+                                    matmul_precision=precision)
+    else:
+        ext = disk.DISK(net, max_features=MAX_FEATURES,
+                        matmul_precision=precision)
+    seen = []
+    hook = net.register_forward_hook(lambda mod, a, out: seen.append(out[0]))
+    try:
+        f = ext.extract(imgs)
+    finally:
+        hook.remove()
+    h, w = imgs.shape[-2:]
+    return f, seen[0][:, :h, :w]
+
+
+def clear_keypoints(torch, f, heat, radius, threshold, bar):
+    """Valid keypoints (B, K) whose score beats every other pixel of its
+    window, the list's last score (when every slot is valid) and the
+    threshold by more than `bar`: a float32 run elsewhere finds them too."""
+    import torch.nn.functional as F
+    B, K = f.mask.shape
+    w = heat.shape[-1]
+    r = radius
+    pad = F.pad(heat, (r, r, r, r), value=-float("inf")).flatten(1)
+    xi, yi = f.xy[..., 0].long(), f.xy[..., 1].long()
+    idx = torch.stack([(yi + r + dy) * (w + 2 * r) + xi + r + dx
+                       for dy in range(-r, r + 1) for dx in range(-r, r + 1)
+                       if dy or dx], -1)
+    second = pad.gather(1, idx.reshape(B, -1)).reshape(B, K, -1).amax(-1)
+    s = f.response
+    last = torch.where(f.mask.all(1), s[:, -1],
+                       torch.full_like(s[:, -1], -float("inf")))
+    return (f.mask & (s - second > bar) & (s - last[:, None] > bar)
+            & ((s - threshold).abs() > bar))
+
+
+def deep_agreement(torch, got, ref, clear_got, clear_ref):
+    """(the share of each run's clear keypoints the other found, the
+    lower of the two; the largest score gap and the smallest descriptor
+    cosine over the keypoints both found), keypoints matched by position."""
+    shares, gaps, coss = [], [], []
+    for b in range(ref.mask.shape[0]):
+        pos = [{tuple(f.xy[b, i].tolist()): i
+                for i in torch.nonzero(f.mask[b]).flatten().tolist()}
+               for f in (got, ref)]
+        for clear, f, other in ((clear_ref, ref, pos[0]),
+                                (clear_got, got, pos[1])):
+            keys = [tuple(f.xy[b, i].tolist())
+                    for i in torch.nonzero(clear[b]).flatten().tolist()]
+            shares.append(sum(k in other for k in keys) / max(len(keys), 1))
+        both = [(i, pos[0][k]) for k, i in pos[1].items() if k in pos[0]]
+        ri, gi = (torch.tensor(c, dtype=torch.long) for c in zip(*both))
+        gaps.append(float((got.response[b, gi] - ref.response[b, ri]).abs().max()))
+        coss.append(float(torch.nn.functional.cosine_similarity(
+            got.desc[b, gi].double(), ref.desc[b, ri].double(), dim=-1).min()))
+    return min(shares), max(gaps), min(coss)
+
+
+def lg_run(torch, net, f0, f1, dev, precision):
+    """LightGlue on one pair on `dev`: (log-assignment (N0, N1) and its
+    mutual matches at threshold 0, all on the CPU)."""
+    from tpu3drec_torch.models.lightglue import (
+        LightGlue, assignment_matches, normalize_keypoints,
+    )
+    f0, f1 = f0.to(dev), f1.to(dev)
+    la = LightGlue(net, matmul_precision=precision).forward(
+        f0.desc[None], f1.desc[None], normalize_keypoints(f0.xy, H, W)[None],
+        normalize_keypoints(f1.xy, H, W)[None], f0.mask[None],
+        f1.mask[None])[0]
+    m = assignment_matches(la, f0.mask[None], f1.mask[None], 0.0)
+    return la[0].cpu(), m.idx2[0].cpu(), m.mask[0].cpu()
+
+
+def lg_near_ties(torch, la, f0, f1, bar):
+    """Rows whose mutual match may differ between two float32 runs
+    within `bar` of log-assignment: the row's top two, or its best
+    column's top two, within bar."""
+    la = torch.where(f0.mask[:, None] & f1.mask[None, :], la,
+                     torch.full_like(la, -1e30))
+    top = la.topk(2, dim=1).values
+    col = la.topk(2, dim=0).values[:, la.argmax(1)]
+    return (top[:, 0] - top[:, 1] < bar) | (col[0] - col[1] < bar)
+
+
+def knn2_f32_check(torch, pm, ops, label):
+    """knn2's float32 kernel on operands the folder engine handed it,
+    against the plain version on the card: distances within KNN2_F32_TOL
+    (relative and absolute), the best index equal wherever the exact top
+    two are farther apart than that, the second wherever the second and
+    third are too; timed beside the plain version, the library call
+    (f32 bmm + topk, TF32 off) and the bound."""
+    a, b, n2, m2 = ops
+    i_k, v_k = pm.knn2_raw(a, b, n2, m2)
+    i_p, v_p = pm.knn2_plain(a, b, n2, m2)
+    sq1 = (a * a).sum(-1)[..., None]
+
+    def dist(v):
+        return torch.sqrt(torch.clamp(v + sq1, min=0))
+    raw = torch.where(m2[:, None, :],
+                      n2[:, None, :] - 2 * torch.matmul(a, b.transpose(1, 2)),
+                      torch.full((), pm.F32_BIG, device=a.device))
+    d3 = dist(raw.topk(3, dim=-1, largest=False).values)
+    del raw
+    dk, dp = dist(v_k), dist(v_p)
+    if not torch.allclose(dk, dp, rtol=KNN2_F32_TOL, atol=KNN2_F32_TOL):
+        fail(f"knn2 f32: distances differ from the plain version at {label}")
+    valid = m2.sum(-1)[:, None] >= 3
+    tol = KNN2_F32_TOL * d3[..., 2] + KNN2_F32_TOL
+    c1 = valid & (d3[..., 1] - d3[..., 0] > tol)
+    c2 = c1 & (d3[..., 2] - d3[..., 1] > tol)
+    if not (torch.equal(i_k[..., 0][c1], i_p[..., 0][c1])
+            and torch.equal(i_k[..., 1][c2], i_p[..., 1][c2])):
+        fail(f"knn2 f32: indices differ from the plain version away from "
+             f"near-ties at {label}")
+    err = float((dk - dp).abs().max())
+    ms = cuda_ms(torch, lambda: pm.knn2_raw(a, b, n2, m2))
+    plain = cuda_ms(torch, lambda: pm.knn2_plain(a, b, n2, m2), reps=2)
+    f32, _ = knn2_library(torch, a, b, n2, m2)
+    lib = cuda_ms(torch, f32, reps=2)
+    Bp, N, D = a.shape
+    m_valid = int(m2.sum())
+    bytes_ = (4 * Bp * N * D + m_valid * (4 * D + 4) + m2.numel()
+              + Bp * N * 2 * 8)
+    t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2.0 * N * m_valid * D / PEAK_F32_OPS * 1e3
+    bound = max(t_bytes, t_ops)
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"knn2 f32 at {label} {tuple(a.shape)} x {tuple(b.shape)} "
+          f"({m_valid} of {m2.numel()} columns valid): distances within "
+          f"{KNN2_F32_TOL} of the plain version (max |err| {err:.3e}); best "
+          f"index equal on all {int(c1.sum())} rows clear of a near-tie, "
+          f"second on {int(c2.sum())} (of {c1.numel()} rows); "
+          f"{ms:.4f} ms per call (CUDA events), plain {plain:.3f} ms, "
+          f"f32 bmm + topk {lib:.3f} ms, bound {bound:.4f} ms ({by})")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=lib, max_abs_err=err)
+
+
+def deep_folder_engine(torch, card, dev, tmp, names):
+    """The `deep_learning` preset's folder engine at its defaults, cold
+    with knn2's launches and first-batch operands recorded, then timed;
+    one batch's detection seconds per method and a profiled batch."""
+    import tpu3drec_torch as tv
+    from tpu3drec_torch.api import _get_detector_registry
+    from tpu3drec_torch.io.images import FolderImageSource
+    from tpu3drec_torch.ops import match as mt
+    from tpu3drec_torch.ops import pallas_match as pm
+    from tpu3drec_torch.ops import pallas_sample as ps
+    folder = os.path.join(tmp, "imgs")
+    pipe = tv.create_pipeline(DEEP_PRESET, device=dev)
+    if pipe.methods != ["SuperPoint", "DISK"]:
+        fail(f"deep_learning preset: methods {pipe.methods}")
+    calls, ops, _, restore = spy_kernel_inputs(mt, ps)
+    try:
+        pm.knn2_raw.launches = 0
+        t0 = time.perf_counter()
+        cold = pipe.match_folder(folder, os.path.join(tmp, "deep_cold"),
+                                 resume=False)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        launches = pm.knn2_raw.launches
+    finally:
+        restore()
+    by_method = {DEEP_DEPTH_METHOD.get(d, d): n for d, n in sorted(calls.items())}
+    print(f"deep folder engine, cold run: knn2 launches {launches}; knn2 "
+          f"calls by method (l2, float32): {by_method}")
+    if launches == 0 or launches != sum(calls.values()) \
+            or set(by_method) != {"SuperPoint", "DISK"}:
+        fail("the deep folder engine did not launch knn2's float32 kernel "
+             "on every SuperPoint and DISK call")
+    t0 = time.perf_counter()
+    steady = pipe.match_folder(folder, os.path.join(tmp, "deep_steady"),
+                               resume=False)
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t0
+    for summary in (cold, steady):
+        st = summary["stats"]
+        if st["engine_fallbacks"] or st["failed"] or st["method_errors"] \
+                or st["completed"] != st["total_pairs"]:
+            fail(f"deep folder engine: {st}")
+    print(f"deep folder engine ({DEEP_PRESET}: SuperPoint + DISK at "
+          f"{MAX_FEATURES} features, kNN): {len(names) / steady_s:.4f} "
+          f"images/s, {st['total_pairs'] / steady_s:.3f} pairs/s "
+          f"({steady_s:.2f} s steady, {st['total_pairs']} pairs; cold "
+          f"{cold_s:.2f} s); mean raw matches: "
+          + ", ".join(f"{k} {v['mean_raw_matches']:.1f}"
+                      for k, v in steady["methods"].items())
+          + f"; on {card}")
+
+    pairs = [(names[i], names[i + 1]) for i in range(len(names) - 1)]
+    batch = pairs[:FOLDER_BATCH]
+    images = FolderImageSource(folder).load_many(
+        sorted({n for p in batch for n in p}))
+    stack = torch.stack([tv.prepare_image(images[n], dev)
+                         for n in sorted(images)])
+    det_s = {}
+    for m in pipe.methods:
+        det = _get_detector_registry()[m]
+        det(stack, max_features=MAX_FEATURES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            det(stack, max_features=MAX_FEATURES)
+        torch.cuda.synchronize()
+        det_s[m] = (time.perf_counter() - t0) / 3
+    print(f"deep detection, one batch of {stack.shape[0]} images of "
+          f"{W}x{H}: " + ", ".join(f"{m} {s:.4f} s" for m, s in det_s.items())
+          + " (host clock, mean of 3)")
+    profile_call(torch, lambda: pipe._match_pairs_batched(images, batch),
+                 "deep.", top=8)
+    return dict(launches=launches, ops=ops, images=images, pairs=pairs,
+                stack=stack, launches_by_method={
+                    f"deep_folder_{m.lower()}": n for m, n in by_method.items()})
+
+
+def deep_per_pair(torch, dev, images, pairs, stack, nets):
+    """LightGlue on the per-pair path with SuperPoint, DISK and
+    ALIKED-n16; its ms per pair at 2,048 keypoints, and a profiled call."""
+    import copy
+    import tpu3drec_torch as tv
+    from tpu3drec_torch.models import lightglue
+    pp = tv.create_pipeline(DEEP_PRESET, {
+        "methods": list(DEEP_PERPAIR_METHODS),
+        "matcher_config": {m: "lightglue" for m in DEEP_PERPAIR_METHODS}},
+        device=dev)
+    counts = {m: [] for m in DEEP_PERPAIR_METHODS}
+    t0 = time.perf_counter()
+    for n1, n2 in pairs[:DEEP_PERPAIR]:
+        res = pp.match(images[n1], images[n2], n1, n2)
+        for m in DEEP_PERPAIR_METHODS:
+            r = res[m]
+            if r.error or r.matcher_used != "lightglue" \
+                    or r.matches.score_type != "confidence":
+                fail(f"per-pair {m}: error {r.error!r}, matcher "
+                     f"{r.matcher_used!r}")
+            counts[m].append(r.num_raw_matches)
+    torch.cuda.synchronize()
+    print(f"per-pair path, {DEEP_PERPAIR} pairs x {len(DEEP_PERPAIR_METHODS)} "
+          f"methods with LightGlue ({time.perf_counter() - t0:.2f} s): "
+          "matches above confidence 0.1 "
+          + "; ".join(f"{m} {v}" for m, v in counts.items()))
+    f, _ = deep_extract(torch, "SuperPoint", copy.deepcopy(
+        nets["SuperPoint"]).to(dev), stack[:2], "default")
+    fa = [f.replace(**{k: getattr(f, k)[i] for k in (
+        "xy", "response", "scale", "angle", "desc", "mask")}) for i in range(2)]
+    ms = cuda_ms(torch, lambda: lightglue.match_features_lightglue(*fa))
+    print(f"LightGlue (dim 256, 9 layers, 4 heads, TF32) on one pair of "
+          f"{MAX_FEATURES} SuperPoint keypoints ({int(fa[0].mask.sum())} and "
+          f"{int(fa[1].mask.sum())} valid): {ms:.3f} ms per pair (CUDA "
+          f"events)")
+    profile_call(torch, lambda: lightglue.match_features_lightglue(*fa),
+                 "lightglue.", top=8)
+
+
+def lg_mutual_counts(torch, dev, imgs, nets, precision):
+    """LightGlue's mutual matches (threshold 0) on the consecutive pairs
+    of `imgs`, SuperPoint's and DISK's features each, all on the card at
+    `precision`: the count summed over the matchings."""
+    import copy
+    n = 0
+    for m, d in (("SuperPoint", 256), ("DISK", 128)):
+        f, _ = deep_extract(torch, m, copy.deepcopy(nets[m]).to(dev), imgs,
+                            precision)
+        lg = copy.deepcopy(nets[f"lightglue_d{d}"]).to(dev)
+        one = [f.replace(**{k: getattr(f, k)[i] for k in (
+            "xy", "response", "scale", "angle", "desc", "mask")})
+            for i in range(imgs.shape[0])]
+        for a, b in zip(one, one[1:]):
+            n += int(lg_run(torch, lg, a, b, dev, precision)[2].sum())
+    return n
+
+
+def deep_card_vs_cpu(torch, dev, imgs, nets):
+    """SuperPoint and DISK on two images, and LightGlue on their pair, on
+    the card against the CPU plain path at "highest", and the same on the
+    card at "default" (TF32) printed; LightGlue's mutual-match count over
+    the consecutive pairs of `imgs` held at TF32."""
+    import copy
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    two = imgs[:2]
+    feats = {}
+    for m in ("SuperPoint", "DISK"):
+        net_c = copy.deepcopy(nets[m]).to(dev)
+        ref, heat = deep_extract(torch, m, nets[m], two.cpu(), "highest")
+        radius, thr = (4, 0.005) if m == "SuperPoint" else (2, 0.0)
+        bar = DEEP_SCORE_BAR[m] * (1.0 if m == "SuperPoint"
+                                   else float(heat.abs().max()))
+        clear_ref = clear_keypoints(torch, ref, heat, radius, thr, bar)
+        for prec in ("highest", "default"):
+            got, heat_g = deep_extract(torch, m, net_c, two, prec)
+            got, heat_g = got.to(cpu), heat_g.cpu()
+            share, gap, cos = deep_agreement(
+                torch, got, ref,
+                clear_keypoints(torch, got, heat_g, radius, thr, bar),
+                clear_ref)
+            print(f"{m} card ({prec}) vs CPU plain path on 2 images: "
+                  f"{int(got.mask.sum())} vs {int(ref.mask.sum())} "
+                  f"keypoints, {int(clear_ref.sum())} clear by {bar:.3g}; "
+                  f"{100 * share:.3f}% of each run's clear ones found by "
+                  f"the other, score gap {gap:.3e}, descriptor cosine >= "
+                  f"{cos:.7f}")
+            if prec == "highest" and (share < 1.0 or gap > bar
+                                      or cos < DEEP_COS_BAR):
+                fail(f"{m}: the card's extraction disagrees with the CPU "
+                     f"plain path")
+        feats[m] = ref
+    f0, f1 = (feats["SuperPoint"].replace(**{
+        k: getattr(feats["SuperPoint"], k)[i] for k in
+        ("xy", "response", "scale", "angle", "desc", "mask")})
+        for i in range(2))
+    net = nets["lightglue_d256"]
+    la_r, i_r, m_r = lg_run(torch, net, f0, f1, cpu, "highest")
+    la64, _, _ = lg_run(torch, copy.deepcopy(net).double(),
+                        *(f.replace(desc=f.desc.double(), xy=f.xy.double())
+                          for f in (f0, f1)), cpu, "highest")
+    v = f0.mask[:, None] & f1.mask[None, :]
+    err32 = float((la_r.double() - la64)[v].abs().max())
+    bar = DEEP_LG_ERR_X * err32
+    held = ~lg_near_ties(torch, la_r, f0, f1, bar)
+    net_c = copy.deepcopy(net).to(dev)
+    for prec in ("highest", "default"):
+        la_g, i_g, m_g = lg_run(torch, net_c, f0, f1, dev, prec)
+        gap = float((la_g - la_r).abs()[v].max())
+        differ = int(((i_g != i_r) | (m_g != m_r))[held].sum())
+        print(f"LightGlue card ({prec}) vs CPU plain path on one pair: "
+              f"log-assignment within {gap:.3e} on the valid block (bar "
+              f"{bar:.3e} = {DEEP_LG_ERR_X} x the CPU's float32 error "
+              f"{err32:.3e} against float64); mutual matches "
+              f"{int(m_g.sum())} vs {int(m_r.sum())}, {differ} of "
+              f"{int(held.sum())} rows clear of near-ties differ")
+        if prec == "highest" and (not gap <= bar or differ):
+            fail("LightGlue: the card disagrees with the CPU plain path")
+    print(f"card vs CPU comparisons: {time.perf_counter() - t0:.1f} s")
+    counts = {p: lg_mutual_counts(torch, dev, imgs, nets, p)
+              for p in ("highest", "default")}
+    print(f"LightGlue mutual matches over {imgs.shape[0] - 1} consecutive "
+          f"pairs x (SuperPoint, DISK) on the card: {counts['default']} at "
+          f"TF32 vs {counts['highest']} at highest (bar: within "
+          f"{100 * DEEP_TF32_COUNT_RTOL:.0f}%)")
+    if abs(counts["default"] - counts["highest"]) \
+            > DEEP_TF32_COUNT_RTOL * counts["highest"]:
+        fail(f"LightGlue at TF32: the match count moved more than "
+             f"{100 * DEEP_TF32_COUNT_RTOL:.0f}%")
+
+
+def run_deep(torch, card, dev, tmp, names):
+    """Phase 10: the deep models on the folder in `tmp`/imgs: the
+    `deep_learning` preset's folder engine (SuperPoint + DISK, kNN through
+    knn2's float32 path), LightGlue on the per-pair path with SuperPoint,
+    DISK and ALIKED-n16, the card against the CPU plain path at
+    "highest" and a TF32 pass, and knn2 at the engine's operands."""
+    from pathlib import Path
+    from tpu3drec_torch import models
+    from tpu3drec_torch.models import lightglue
+    from tpu3drec_torch.ops import pallas_match as pm
+    t_phase = time.perf_counter()
+    wd = Path(tmp) / "weights"
+    nets = deep_weights(torch, wd)
+    # every weights lookup reads this attribute: the phase points it at
+    # its own checkpoints and restores it
+    saved, models.WEIGHTS_DIR = models.WEIGHTS_DIR, wd
+    lightglue._LG_CACHE.clear()
+    try:
+        eng = deep_folder_engine(torch, card, dev, tmp, names)
+        deep_per_pair(torch, dev, eng["images"], eng["pairs"], eng["stack"],
+                      nets)
+        deep_card_vs_cpu(torch, dev, eng["stack"][:DEEP_PERPAIR + 1], nets)
+    finally:
+        models.WEIGHTS_DIR = saved
+        lightglue._LG_CACHE.clear()
+    knn2 = {}
+    for d, m in sorted(DEEP_DEPTH_METHOD.items(), reverse=True):
+        r = knn2_f32_check(torch, pm, eng["ops"][d],
+                           f"the deep folder's first batch of {m} operands")
+        knn2.update({f"deep_{m.lower()}_{k}": v for k, v in r.items()})
+    print(f"deep phase on {card}: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=eng["launches"], knn2=knn2,
+                launches_by_method=eng["launches_by_method"])
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "tpu3drec_torch", "csrc")):
@@ -3085,17 +3567,23 @@ def main():
         t0 = time.perf_counter()
         accurate = run_folder_accurate(torch, card, dev, tmp, names, Rs)
         phase_s["8 accurate chain"] = time.perf_counter() - t0
-    for f in (folder, accurate):
+
+        # ---- 9. the rest of the dense stage on phase 7's dense input
+        t0 = time.perf_counter()
+        rest = run_dense_rest(torch, card, dev, *folder.pop("dense_input"))
+        fields["sgm"].update(rest["sgm"])
+        phase_s["9 dense rest"] = time.perf_counter() - t0
+
+        # ---- 10. the deep models on the same folder
+        t0 = time.perf_counter()
+        deep = run_deep(torch, card, dev, tmp, names)
+        phase_s["10 deep models"] = time.perf_counter() - t0
+    for f in (folder, accurate, deep):
         fields["knn2"].update(f["knn2"])
+    for f in (folder, accurate):
         fields["ori_desc"].update(f["ori_desc"])
 
-    # ---- 9. the rest of the dense stage on phase 7's dense input
-    t0 = time.perf_counter()
-    rest = run_dense_rest(torch, card, dev, *folder.pop("dense_input"))
-    fields["sgm"].update(rest["sgm"])
-    phase_s["9 dense rest"] = time.perf_counter() - t0
-
-    # ---- 10. the kernels line
+    # ---- 11. the kernels line
     sources = {
         "ori_desc": ("tpu3drec_torch/csrc/ori_desc.cu",
                      "tpu3drec/ops/pallas_sample.py:541"),
@@ -3118,13 +3606,15 @@ def main():
                                 launches[name],
                             "folder": folder["launches"][name],
                             "folder_accurate": accurate["launches"][name],
+                            **(deep["launches_by_method"]
+                               if name == "knn2" else {}),
                             **({f"dense_rest_{k}": v for k, v in
                                 rest["launches"].items()}
                                if name == "sgm" else {})},
                         **{k: v for k, v in f.items() if k.startswith(
                             ("full_", "library_bf16", "kernel_ms", "orb_",
                              "folder_", "akaze_", "brisk_", "accurate_",
-                             "sweep_"))}})
+                             "sweep_", "deep_"))}})
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in phase_s.items()))
     print(f"chip_smoke wall time: {time.perf_counter() - t_main:.1f} s "

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import torch_threads  # noqa: E402,F401  (autouse)
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -54,6 +55,20 @@ def check(got, ref):
 def scene():
     K, cams, X, oc, op, uv = make_ba_scene(noise_px=0.3)
     return build_problem(K, cams, X, oc, op, uv, cam_jitter=1.0, pt_jitter=0.05)
+
+
+@pytest.fixture(scope="module")
+def jax_ba(scene):
+    """The reference's 10-iteration solve of `scene` by Schur solver,
+    computed once a solver."""
+    cache = {}
+
+    def get(solver):
+        if solver not in cache:
+            cache[solver] = jb.bundle_adjust(
+                scene, jb.BAConfig(max_iters=10, schur_solver=solver))
+        return cache[solver]
+    return get
 
 
 def small_problem(C):
@@ -114,9 +129,9 @@ def test_residuals_and_jacobians_match_jax(scene):
 
 
 @pytest.mark.parametrize("solver", ["dense", "cg"])
-def test_bundle_adjust_matches_jax(scene, solver):
+def test_bundle_adjust_matches_jax(scene, jax_ba, solver):
     cfg = dict(max_iters=10, schur_solver=solver)
-    ref = jb.bundle_adjust(scene, jb.BAConfig(**cfg))
+    ref = jax_ba(solver)
     got = tb.bundle_adjust(port(scene), tb.BAConfig(**cfg))
     check(got, ref)
     np.testing.assert_allclose(got.points.numpy(), np.asarray(ref.points),
@@ -127,6 +142,50 @@ def test_bundle_adjust_matches_jax(scene, solver):
     assert got.packed.shape == ref.packed.shape
     np.testing.assert_allclose(got.packed.numpy()[-6:], np.asarray(ref.packed)[-6:],
                                rtol=1e-3)
+
+
+def test_fixed_order_segment_sums_match_index_add():
+    """The segment sums the card runs (`_segments` with a fixed order),
+    here on the CPU: index_add_'s sums to float32 rounding, bit-equal run
+    to run, with empty segments, one longer than a chunk, and no rows."""
+    rng = np.random.default_rng(3)
+    idx = np.concatenate([rng.integers(0, 9, 300),
+                          np.full(tb.SEG_CHUNK * 2 + 37, 4)])
+    idx = torch.as_tensor(rng.permutation(idx))
+    n = 12                                   # 9, 10 and 11 stay empty
+    for x in (torch.as_tensor(rng.normal(size=(len(idx), 10, 3)),
+                              dtype=torch.float32),
+              torch.as_tensor(rng.normal(size=(len(idx), 3)),
+                              dtype=torch.float32)):
+        want = tb._segsum(x, tb._segments(idx, n))
+        seg = tb._segments(idx, n, fixed_order=True)
+        got = tb._segsum(x, seg)
+        assert seg.order is not None and int(seg.seg_chunks[4]) == 3
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+        assert torch.equal(got, tb._segsum(x, seg))
+        assert not got[9:].any()
+    empty = torch.zeros(0, dtype=torch.long)
+    none = tb._segsum(torch.zeros(0, 3),
+                      tb._segments(empty, 5, fixed_order=True))
+    assert none.shape == (5, 3) and not none.any()
+
+
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+def test_bundle_adjust_in_fixed_order_matches_jax(scene, jax_ba, solver,
+                                                  monkeypatch):
+    """The solve with the card's fixed-order segment sums, run on the
+    CPU, meets the reference's bars and repeats bit for bit."""
+    segments = tb._segments
+    monkeypatch.setattr(tb, "_segments", lambda idx, n: segments(
+        idx, n, fixed_order=True))
+    cfg = tb.BAConfig(max_iters=10, schur_solver=solver)
+    got = tb.bundle_adjust(port(scene), cfg)
+    ref = jax_ba(solver)
+    check(got, ref)
+    np.testing.assert_allclose(got.points.numpy(), np.asarray(ref.points),
+                               atol=CAM_TOL)
+    assert torch.equal(got.packed, tb.bundle_adjust(port(scene), cfg).packed)
 
 
 @pytest.mark.parametrize("C, cfg", [

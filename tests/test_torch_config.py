@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import torch_threads  # noqa: E402,F401  (autouse)
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -170,9 +171,38 @@ def test_matcher_factory_knn_matches_like_jax(det, kind):
         np.testing.assert_allclose(b["score"], a["score"], rtol=1e-6)
 
 
-def test_lightglue_matcher_names_the_deep_model_item():
-    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
-        treg.MatcherFactory().create_matcher("SuperPoint", "lightglue")
+def test_lightglue_matcher_names_the_deep_model_item(tmp_path, monkeypatch):
+    """The factory's LightGlue matcher is the deep model: without converted
+    weights both packages' raise the same ImportError (the pipeline's kNN
+    fallback), with a converted checkpoint the port's returns LightGlue's
+    confidence-scored mutual matches."""
+    import tpu3drec.models as jmodels
+    import tpu3drec_torch.models as tmodels
+    from tpu3drec.models import lightglue as jlg
+    from tpu3drec_torch.models import lightglue as tlg
+    (j1, j2), (t1, t2) = _feature_pair("float", np.random.default_rng(4))
+    for mod in (jmodels, tmodels):
+        monkeypatch.setattr(mod, "WEIGHTS_DIR", tmp_path)
+    monkeypatch.setattr(jlg, "_LG_CACHE", {})
+    monkeypatch.setattr(tlg, "_LG_CACHE", {})
+    errors = []
+    for reg, f1, f2 in ((jreg, j1, j2), (treg, t1, t2)):
+        fn = reg.MatcherFactory().create_matcher("SuperPoint", "lightglue")
+        with pytest.raises(ImportError) as e:
+            fn(f1, f2)
+        errors.append(str(e.value))
+    assert errors[0] == errors[1] == (
+        f"lightglue weights not available for {t1.desc.shape[-1]}-d "
+        f"descriptors")
+    lg = tlg.LightGlue(dim=32, n_layers=1, input_dim=t1.desc.shape[-1])
+    tlg.save_weights(lg.init_random(torch.Generator().manual_seed(0)),
+                     tmp_path / "lightglue.npz")
+    m = treg.MatcherFactory().create_matcher("SuperPoint", "lightglue")(t1, t2)
+    assert m.method == "lightglue" and m.score_type == "confidence"
+    assert m.idx1.shape == (t1.capacity,)
+    ok = m.mask.numpy()
+    assert not ok[~t1.mask.numpy()].any()
+    assert ((m.score.numpy()[ok] > 0.1) & (m.score.numpy()[ok] <= 1)).all()
 
 
 def _method_results(pkg, rng_seed, specs, **kw):

@@ -20,6 +20,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+from torch_threads import torch_threads  # noqa: E402,F401  (autouse)
 
 from tpu3drec.ops import mesh as jmesh
 from tpu3drec.ops import pointcloud as jpc

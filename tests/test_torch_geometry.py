@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from torch_threads import torch_threads  # noqa: E402,F401  (autouse)
 
 from tpu3drec.ops import geometry as jg
 from tpu3drec.ops import ransac as jr

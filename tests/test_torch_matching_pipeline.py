@@ -24,6 +24,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from torch_threads import torch_threads  # noqa: E402,F401  (autouse)
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -174,23 +175,34 @@ def test_stage_glue_load_images_and_keypoint_roundtrip(tmp_path):
 
 # ---- the folder run -----------------------------------------------------
 
+def engine_results(pipe):
+    """Every MatchingResult the pipeline's batched engine returns, by pair
+    (the folder run's own, so no test recomputes them)."""
+    store = {}
+    inner = pipe._match_pairs_batched
+
+    def keep(images, pairs):
+        out = inner(images, pairs)
+        store.update(out)
+        return out
+    pipe._match_pairs_batched = keep
+    return store
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The reference's and the port's folder runs on one folder, and each
-    engine's per-pair MatchingResults."""
+    engine's per-pair MatchingResults (the runs' single batch)."""
     tmp = tmp_path_factory.mktemp("mf")
     folder = make_folder(tmp)
     out = {}
-    for name, create, src_mod, kw in (
-            ("jax", jcreate, jimg, {}), ("torch", tcreate, timg,
-                                         {"device": "cpu"})):
+    for name, create, kw in (("jax", jcreate, {}),
+                             ("torch", tcreate, {"device": "cpu"})):
         pipe = create("fast", CFG, **kw)
+        engine = engine_results(pipe)
         summary = pipe.match_folder(folder, tmp / name, batch_size=4,
                                     export_colmap=True, collect_results=True)
-        src = src_mod.FolderImageSource(folder)
-        pairs = sorted(summary["matches_data"])
-        images = src.load_many(sorted({n for p in pairs for n in p}))
-        engine = create("fast", CFG, **kw)._match_pairs_batched(images, pairs)
+        assert sorted(engine) == sorted(summary["matches_data"])
         out[name] = dict(pipe=pipe, summary=summary, engine=engine,
                          dir=tmp / name)
     out["folder"] = folder
@@ -238,17 +250,17 @@ def accurate_runs(tmp_path_factory):
     folder = make_folder(tmp)
     cfg = {"filtering": {"use_adaptive_filtering": False}}
     pipe = tcreate("accurate", cfg, device="cpu")
+    engine = engine_results(pipe)
     summary = pipe.match_folder(folder, tmp / "torch", collect_results=True)
     pairs = sorted(summary["matches_data"])
-    out = {"summary": summary, "pipe": pipe, "pairs": pairs, "folder": folder}
-    for name, create, src_mod, kw in (
-            ("jax", jcreate, jimg, {}), ("torch", tcreate, timg,
-                                         {"device": "cpu"})):
-        images = src_mod.FolderImageSource(folder).load_many(
-            sorted({n for p in pairs for n in p}))
-        out[name] = create("accurate", cfg, **kw)._match_pairs_batched(
-            images, pairs)
-    return out
+    assert sorted(engine) == pairs
+    images = jimg.FolderImageSource(folder).load_many(
+        sorted({n for p in pairs for n in p}))
+    # the reference's engine on the batch the port's folder run matched
+    batch = list(engine)
+    return {"summary": summary, "pipe": pipe, "pairs": pairs,
+            "folder": folder, "torch": engine,
+            "jax": jcreate("accurate", cfg)._match_pairs_batched(images, batch)}
 
 
 def test_accurate_preset_counts_and_best_method_like_jax(accurate_runs):
@@ -432,7 +444,7 @@ def test_engine_fallback_is_counted_and_bad_inputs_degrade(tmp_path, monkeypatch
     assert bad["ORB"].error and bad["ORB"].num_matches == 0
 
 
-def test_unported_detectors_are_never_dropped_silently(monkeypatch):
+def test_unported_detectors_are_never_dropped_silently(monkeypatch, tmp_path):
     # every detector that needs no weights runs, in the presets too
     pipe = tv.create_pipeline("accurate", device="cpu")
     assert pipe.methods == ["SIFT", "AKAZE", "BRISK"]
@@ -456,14 +468,28 @@ def test_unported_detectors_are_never_dropped_silently(monkeypatch):
     assert robust.methods == ["SIFT", "AKAZE"]
     with pytest.raises(ValueError, match="no available detectors"):
         tv.create_pipeline("deep_learning", device="cpu")
-    # with converted weights on disk, a deep detector is named and refused
+    # with converted weights on disk (here random, written by the port),
+    # both packages register the deep detectors and the port runs them
+    import tpu3drec.models as jmodels
     import tpu3drec_torch.models as tmodels
-    monkeypatch.setattr(tmodels, "weights_available", lambda model=None: True)
-    for m in ("SuperPoint", "DISK", "ALIKED"):
-        with pytest.raises(NotImplementedError, match="Queue 1 #6"):
-            tv.detect_features(img, m, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
-        create_multi_detector(("SIFT", "DISK"), device="cpu")
+    from tpu3drec_torch.models import aliked, disk, superpoint
+    wd = tmp_path / "weights"
+    for mod in (jmodels, tmodels):
+        monkeypatch.setattr(mod, "WEIGHTS_DIR", wd)
+    gen = torch.Generator().manual_seed(0)
+    for mod, cls, name in ((superpoint, superpoint.SuperPoint, "superpoint"),
+                           (disk, disk.DISK, "disk"),
+                           (aliked, aliked.ALIKED, "aliked")):
+        mod.save_weights(cls().init_random(gen), wd / f"{name}.npz")
+    deep = {"SuperPoint", "DISK", "ALIKED"}
+    assert set(jreg()) & deep == set(treg()) & deep == deep
+    for m in sorted(deep):
+        f = tv.detect_features(img, m, max_features=64, device="cpu")
+        assert f.method == m and f.desc.shape[0] == 64, m
+        assert int(f.mask.sum()) > 0, m
+    det = create_multi_detector(("SIFT", "DISK"), max_features=64,
+                                device="cpu")
+    assert det.methods == ["SIFT", "DISK"] and det.skipped == []
 
 
 def make_image():

@@ -11,6 +11,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from torch_threads import torch_threads  # noqa: E402,F401  (autouse)
 
 from tpu3drec.ops import pallas_sample as jps
 from tpu3drec_torch.ops import pallas_sample as tps

@@ -27,6 +27,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from torch_threads import torch_threads  # noqa: E402,F401  (autouse)
 
 from tpu3drec.ops import stereo as jst
 from tpu3drec_torch.ops import stereo as tst

@@ -23,6 +23,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from torch_threads import torch_threads  # noqa: E402,F401  (autouse)
 from scipy import ndimage
 
 from tpu3drec.core.types import Features as JFeatures
@@ -220,6 +221,10 @@ def test_port_imports_no_jax():
             "tpu3drec_torch.bench.synthetic, tpu3drec_torch.core.config, "
             "tpu3drec_torch.core.registry, tpu3drec_torch.core.multi_match, "
             "tpu3drec_torch.multi_method, tpu3drec_torch.models, "
+            "tpu3drec_torch.models._params, tpu3drec_torch.models._common, "
+            "tpu3drec_torch.models.superpoint, tpu3drec_torch.models.disk, "
+            "tpu3drec_torch.models.aliked, tpu3drec_torch.models.aliked_n16, "
+            "tpu3drec_torch.models.lightglue, "
             "tpu3drec_torch.ops.fast, tpu3drec_torch.ops.harris, "
             "tpu3drec_torch.ops.orb, tpu3drec_torch.ops._orb_pattern_cv, "
             "tpu3drec_torch.io.images, tpu3drec_torch.io.native_decoder, "

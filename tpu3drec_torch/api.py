@@ -6,13 +6,12 @@ Port of `tpu3drec/api.py`: `prepare_image`, `detect_features`,
 and `reconstruct_folder`. These entry points take host images or a
 folder and a `device` (None means CUDA; see `core.device`).
 
-The detector registry holds every detector of the reference that needs
-no weights: SIFT, Harris, GoodFeatures (alias GFTT), ORB, AKAZE and BRISK.
-Each takes one `(H, W)` image or a `(B, H, W)` batch and runs on the
-tensor's device. The deep detectors follow the reference's rule: without
-converted weights on disk they are unavailable (not registered), and with
-weights present they raise `NotImplementedError` naming ROADMAP Queue 1
-#6, which ports them.
+The detector registry holds every detector of the reference: SIFT,
+Harris, GoodFeatures (alias GFTT), ORB, AKAZE and BRISK, and the deep
+detectors SuperPoint, DISK and ALIKED when their converted weights are on
+disk (`models.weights_available`, asked at each lookup, as the reference
+does). Each takes one `(H, W)` image or a `(B, H, W)` batch and runs on
+the tensor's device.
 """
 
 from __future__ import annotations
@@ -63,26 +62,24 @@ _DETECTORS = {
     "AKAZE": detect_akaze_features,
     "BRISK": detect_brisk_features,
 }
-# deep detector -> its weights file stem
-_DEEP = {"SuperPoint": "superpoint", "DISK": "disk", "ALIKED": "aliked"}
 
 
 def _get_detector_registry() -> Dict[str, Any]:
-    """Name -> detect fn of the detectors the port runs."""
-    return dict(_DETECTORS)
-
-
-def check_detector(method: str) -> None:
-    """Raise `NotImplementedError` for a deep detector whose converted
-    weights are on disk (the port does not run the deep models yet);
-    return for any other name."""
-    if method in _DEEP:
-        from tpu3drec_torch.models import weights_available
-        if weights_available(_DEEP[method]):
-            raise NotImplementedError(
-                f"tpu3drec_torch: converted {method} weights are on disk, "
-                f"but the deep detectors are not ported yet (ROADMAP "
-                f"Queue 1 #6)")
+    """Name -> detect fn of the detectors the port runs; a deep detector
+    only when its converted weights are on disk (the reference's stand-in
+    for its torch import guards)."""
+    from tpu3drec_torch import models
+    registry = dict(_DETECTORS)
+    if models.weights_available("superpoint"):
+        from tpu3drec_torch.models.superpoint import detect_superpoint_features
+        registry["SuperPoint"] = detect_superpoint_features
+    if models.weights_available("disk"):
+        from tpu3drec_torch.models.disk import detect_disk_features
+        registry["DISK"] = detect_disk_features
+    if models.weights_available("aliked"):
+        from tpu3drec_torch.models.aliked import detect_aliked_features
+        registry["ALIKED"] = detect_aliked_features
+    return registry
 
 
 def unit_float(image) -> np.ndarray:
@@ -120,14 +117,14 @@ def detect_features(image, method: str = "SIFT",
                     config: Optional[Dict[str, Any]] = None,
                     device=None, **params) -> Features:
     """Detect keypoints + descriptors with one method."""
-    check_detector(method)
-    if method not in _DETECTORS:
+    registry = _get_detector_registry()
+    if method not in registry:
         raise ValueError(f"Unknown or unavailable detector {method!r}; "
-                         f"have {sorted(_DETECTORS)}")
+                         f"have {sorted(registry)}")
     img = prepare_image(image, device)
     kw = _detector_params(method, config, max_features)
     kw.update(params)
-    return _DETECTORS[method](img, **kw)
+    return registry[method](img, **kw)
 
 
 def match_images(image1, image2, method: str = "SIFT",

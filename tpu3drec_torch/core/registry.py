@@ -5,8 +5,8 @@ copy of the JAX package's file, same schema and version), validates
 detector<->matcher combinations, resolves the matcher for a detector
 (explicit config > recommended > default), supplies per-combo parameters,
 and prints the compatibility matrix. The factory's kNN matchers run
-`ops.match.match_features`; LightGlue is a deep model, not ported yet
-(ROADMAP Queue 1 #6).
+`ops.match.match_features`, its LightGlue matcher
+`models.lightglue.match_features_lightglue`.
 """
 
 from __future__ import annotations
@@ -106,9 +106,15 @@ class MatcherFactory:
         params.update(overrides)
 
         if mtype == "lightglue":
-            raise NotImplementedError(
-                "tpu3drec_torch: the LightGlue matcher is a deep model, not "
-                "ported yet (ROADMAP Queue 1 #6)")
+            from tpu3drec_torch.models.lightglue import (
+                match_features_lightglue,
+            )
+            conf = params.get("filter_threshold", 0.1)
+
+            def lg_match(f1, f2):
+                return match_features_lightglue(f1, f2,
+                                                filter_threshold=conf)
+            return lg_match
 
         ratio = params.get("ratio_threshold",
                            0.7 if mtype == "flann" else 0.75)

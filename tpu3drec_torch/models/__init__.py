@@ -1,9 +1,12 @@
-"""Deep feature models: not ported yet (ROADMAP Queue 1 #6).
+"""Deep feature models: SuperPoint, DISK, ALIKED (the approximation and
+the published n16 network) and the LightGlue matcher, as `nn.Module`s.
 
-`weights_available` reports whether converted checkpoints are on disk, in
-the directory the JAX package reads (`TPU3DREC_WEIGHTS`, default
-`~/.cache/tpu3drec/weights`). The config's hardware adjustment and the
-detector registry ask it before they name a deep detector.
+Port of `tpu3drec/models/`. The weights are the converted checkpoints the
+JAX package reads: npz files in `WEIGHTS_DIR` (`TPU3DREC_WEIGHTS`, read
+when this module is imported; default `~/.cache/tpu3drec/weights`),
+carried into each module's `state_dict` by `models._params`. Without them
+a deep detector is not registered and LightGlue falls back to kNN, as in
+the reference.
 """
 
 import os

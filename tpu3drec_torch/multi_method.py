@@ -3,10 +3,8 @@
 Port of `tpu3drec/multi_method.py`: runs N configured detectors over one
 image -> {method: Features}, with per-method params. As the reference, a
 method the registry does not hold (a deep detector without weights) is
-skipped and listed in `skipped`; a deep detector whose weights are on
-disk raises `NotImplementedError` until the deep models are ported (see
-`api.check_detector`). A method that fails on an image yields empty
-Features, except on `RuntimeError`, a kernel or CUDA fault, which
+skipped and listed in `skipped`. A method that fails on an image yields
+empty Features, except on `RuntimeError`, a kernel or CUDA fault, which
 propagates.
 """
 
@@ -25,12 +23,11 @@ class MultiMethodFeatureDetector:
                  max_features: int = 2048,
                  detector_params: Optional[Dict[str, Dict]] = None,
                  device=None):
-        from tpu3drec_torch.api import _get_detector_registry, check_detector
+        from tpu3drec_torch.api import _get_detector_registry
         registry = _get_detector_registry()
         self.methods: List[str] = []
         self.skipped: List[str] = []
         for m in methods:
-            check_detector(m)
             (self.methods if m in registry else self.skipped).append(m)
         self.max_features = max_features
         self.detector_params = detector_params or {}

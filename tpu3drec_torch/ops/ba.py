@@ -22,8 +22,11 @@ CG runs in blocks of `CG_CHECK` iterations in which a device-side flag
 (the reference's loop condition) freezes the state once it stops, and the
 host reads that flag once a block: the arithmetic and the iteration
 counts are the reference's, at up to CG_CHECK - 1 frozen iterations and
-one sync a block. Segment sums are `index_add_`, whose float atomics on
-CUDA make the last bits vary from run to run.
+one sync a block. Segment sums are `index_add_` on the CPU, which adds
+rows in order. On CUDA its float atomics add them in whatever order the
+card runs them, so a solve's last bits, and through them which weak
+views an incremental reconstruction registers, varied from run to run;
+there the rows are summed in a fixed order instead (`_segments`).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from tpu3drec_torch.ops.lie import exp_so3
 
 CAM_DIM = 10  # rvec(3) + tvec(3) + fx, fy, cx, cy
 CG_CHECK = 8  # CG iterations between host reads of the stop flag
+SEG_CHUNK = 256  # rows summed in order by one CUDA thread (`_segments`)
 
 
 class BAProblem(NamedTuple):
@@ -186,10 +190,46 @@ def mean_reproj_error(prob: BAProblem) -> torch.Tensor:
     return (n * m).sum() / torch.clamp(m.sum(), min=1.0)
 
 
-def _segsum(x: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    """jax.ops.segment_sum: rows of x added into n segments."""
-    return torch.zeros((n,) + x.shape[1:], dtype=x.dtype,
-                       device=x.device).index_add_(0, idx, x)
+class _Segments(NamedTuple):
+    """Rows -> `n` segments for `_segsum`, built once a solve. With
+    `order` set the rows are summed in a fixed order: stably sorted by
+    segment, in chunks of at most SEG_CHUNK rows (`chunk_len`), then the
+    chunks of each segment (`seg_chunks` of them)."""
+    idx: torch.Tensor
+    n: int
+    order: Optional[torch.Tensor] = None
+    chunk_len: Optional[torch.Tensor] = None
+    seg_chunks: Optional[torch.Tensor] = None
+
+
+def _segments(idx: torch.Tensor, n: int,
+              fixed_order: Optional[bool] = None) -> _Segments:
+    """Segments of `idx` (M,) into n. `fixed_order` defaults to CUDA:
+    `index_add_` adds in row order on the CPU, but by float atomics there.
+    Two segmented reductions replace them (each thread sums its rows in
+    order); the chunks keep a camera's 10^4 rows from one thread."""
+    if not (idx.is_cuda if fixed_order is None else fixed_order):
+        return _Segments(idx, n)
+    order = torch.argsort(idx, stable=True)
+    counts = torch.bincount(idx, minlength=n)
+    nch = (counts + SEG_CHUNK - 1) // SEG_CHUNK
+    seg = torch.repeat_interleave(torch.arange(n, device=idx.device), nch)
+    rank = (torch.arange(seg.numel(), device=idx.device)
+            - (torch.cumsum(nch, 0) - nch)[seg])
+    chunk_len = torch.clamp(counts[seg] - rank * SEG_CHUNK, max=SEG_CHUNK)
+    return _Segments(idx, n, order, chunk_len, nch)
+
+
+def _segsum(x: torch.Tensor, seg: _Segments) -> torch.Tensor:
+    """jax.ops.segment_sum: rows of x added into seg.n segments."""
+    out = torch.zeros((seg.n,) + x.shape[1:], dtype=x.dtype, device=x.device)
+    if seg.order is None:
+        return out.index_add_(0, seg.idx, x)
+    if seg.chunk_len.numel() == 0:
+        return out
+    part = torch.segment_reduce(x[seg.order], "sum", lengths=seg.chunk_len,
+                                axis=0)
+    return torch.segment_reduce(part, "sum", lengths=seg.seg_chunks, axis=0)
 
 
 def _damp(B: torch.Tensor, lam: torch.Tensor, eps: float) -> torch.Tensor:
@@ -230,6 +270,10 @@ def bundle_adjust(prob: BAProblem,
     obs_pt = prob.obs_pt[order].long()
     obs_uv = prob.obs_uv[order]
     obs_mask = prob.obs_mask[order]
+    cam_seg, pt_seg = _segments(obs_cam, C), _segments(obs_pt, P)
+    if solver == "dense":
+        # W's (point, camera) blocks, one segment each
+        blk_seg = _segments(obs_pt * C + obs_cam, P * C)
 
     pmask = prob.param_mask.to(torch.float32)
     if not config.optimize_intrinsics:
@@ -246,15 +290,14 @@ def bundle_adjust(prob: BAProblem,
 
     def solve_cg(Ud, Wm, WVm, gc, gp):
         def matvec(x):
-            z = _segsum(torch.einsum("mij,mi->mj", Wm, x[obs_cam]), obs_pt, P)
-            back = _segsum(torch.einsum("mil,ml->mi", WVm, z[obs_pt]),
-                           obs_cam, C)
+            z = _segsum(torch.einsum("mij,mi->mj", Wm, x[obs_cam]), pt_seg)
+            back = _segsum(torch.einsum("mil,ml->mi", WVm, z[obs_pt]), cam_seg)
             return (torch.einsum("cij,cj->ci", Ud, x) - back) * pmask
 
         rhs = (gc - _segsum(torch.einsum("mil,ml->mi", WVm, gp[obs_pt]),
-                            obs_cam, C)) * pmask
+                            cam_seg)) * pmask
         # block-Jacobi preconditioner from the exact diagonal blocks
-        Dblk = Ud - _segsum(torch.einsum("mil,mjl->mij", WVm, Wm), obs_cam, C)
+        Dblk = Ud - _segsum(torch.einsum("mil,mjl->mij", WVm, Wm), cam_seg)
         Dblk = (Dblk * (pmask[:, :, None] * pmask[:, None, :])
                 + eyec * (1.0 - pmask[:, :, None] * eyec))
         Minv = torch.linalg.inv_ex(Dblk + 1e-8 * eyec)[0]
@@ -292,8 +335,7 @@ def bundle_adjust(prob: BAProblem,
         return x
 
     def solve_dense(Ud, Wm, Vinv, gc, gp):
-        Wb = torch.zeros((P, C, CAM_DIM, 3), dtype=Wm.dtype, device=dev)
-        Wb.index_put_((obs_pt, obs_cam), Wm, accumulate=True)
+        Wb = _segsum(Wm, blk_seg).reshape(P, C, CAM_DIM, 3)
         # S = U_blockdiag - sum_p W_p V_p^-1 W_p^T
         WV = torch.einsum("pcij,pjl->pcil", Wb, Vinv)
         S = -torch.einsum("pail,pbml->abim", WV, Wb)
@@ -319,10 +361,10 @@ def bundle_adjust(prob: BAProblem,
         Jp = Jp * sw[:, None, None]
         nrw = -(r * sw[:, None])
 
-        U = _segsum(torch.einsum("mri,mrj->mij", Jc, Jc), obs_cam, C)
-        V = _segsum(torch.einsum("mri,mrj->mij", Jp, Jp), obs_pt, P)
-        gc = _segsum(torch.einsum("mri,mr->mi", Jc, nrw), obs_cam, C)
-        gp = _segsum(torch.einsum("mri,mr->mi", Jp, nrw), obs_pt, P)
+        U = _segsum(torch.einsum("mri,mrj->mij", Jc, Jc), cam_seg)
+        V = _segsum(torch.einsum("mri,mrj->mij", Jp, Jp), pt_seg)
+        gc = _segsum(torch.einsum("mri,mr->mi", Jc, nrw), cam_seg)
+        gp = _segsum(torch.einsum("mri,mr->mi", Jp, nrw), pt_seg)
         Ud = _damp(U, lam, 1e-6)
         Vinv = torch.linalg.inv_ex(_damp(V, lam, 1e-8) + 1e-9 * eye3)[0]
         Wm = torch.einsum("mri,mrj->mij", Jc, Jp)                  # (M, 10, 3)
@@ -333,7 +375,7 @@ def bundle_adjust(prob: BAProblem,
             dc = solve_cg(Ud, Wm, WVm, gc, gp)
         dc = dc * pmask
         # back-substitute the points: dp = Vinv (gp - W^T dc)
-        WTdc = _segsum(torch.einsum("mij,mi->mj", Wm, dc[obs_cam]), obs_pt, P)
+        WTdc = _segsum(torch.einsum("mij,mi->mj", Wm, dc[obs_cam]), pt_seg)
         dp = torch.einsum("pij,pj->pi", Vinv, gp - WTdc) * ptmask[:, None]
         return dc, dp
 

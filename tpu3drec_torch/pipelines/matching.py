@@ -15,7 +15,9 @@ features are memoized per (image, method) within a folder run. The
 engine works at the batch's real counts (the reference pads images and
 pairs to buckets for its compile cache), and each pair's RANSAC draws
 come from its own CPU generator seeded with its index in the batch, so
-the card and the CPU draw the same samples.
+the card and the CPU draw the same samples. Like the reference's, the
+engine matches every method by kNN, also one configured for `lightglue`:
+LightGlue runs on the per-pair path (`match`, `engine="perpair"`).
 
 Failures: the reference turns any exception into a degraded result (the
 batched engine falls back to the per-pair path, a method yields an empty
@@ -88,15 +90,13 @@ class FeatureProcessingPipeline:
     CUDA)."""
 
     def __init__(self, config: Optional[Dict[str, Any]] = None, device=None):
-        from tpu3drec_torch.api import _get_detector_registry, check_detector
+        from tpu3drec_torch.api import _get_detector_registry
         self.config = merge_configs(DEFAULT_CONFIG, config)
         problems = validate_config(self.config)
         if problems:
             raise ValueError("invalid config: " + "; ".join(problems))
         self.device = resolve_device(device)
         registry = _get_detector_registry()
-        for m in self.config["methods"]:
-            check_detector(m)
         self.methods = [m for m in self.config["methods"] if m in registry]
         if not self.methods:
             raise ValueError(
@@ -166,14 +166,26 @@ class FeatureProcessingPipeline:
 
                 matcher, mp = self._matcher_params(method)
                 matcher_used = matcher
+                m = None
                 if matcher == "lightglue":
-                    matcher_used = ("knn (lightglue fallback: LightGlue is "
-                                    "not ported yet, ROADMAP Queue 1 #6)")
+                    # LightGlue where converted weights fit the
+                    # descriptors; otherwise kNN, and the fallback recorded
+                    from tpu3drec_torch.models.lightglue import (
+                        match_features_lightglue,
+                    )
+                    try:
+                        m = match_features_lightglue(
+                            f1, f2, filter_threshold=mp.get(
+                                "filter_threshold", 0.1))
+                    except ImportError as fe:
+                        matcher_used = f"knn (lightglue fallback: {fe})"
                 elif matcher == "auto":
                     matcher_used = auto_select_matcher(f1)
-                m = match_features(
-                    f1, f2, ratio=mp.get("ratio_threshold", 0.75),
-                    cross_check=mp.get("cross_check", False), method=method)
+                if m is None:
+                    m = match_features(
+                        f1, f2, ratio=mp.get("ratio_threshold", 0.75),
+                        cross_check=mp.get("cross_check", False),
+                        method=method)
                 int(m.mask.sum())
                 t2 = time.perf_counter()
 
