@@ -149,9 +149,34 @@ Phases, each of which raises (and so exits non-zero) on failure:
      float32 kernel at the SuperPoint (x 256) and DISK (x 128) operands
      against its plain version, timed beside its bound and f32 `bmm` +
      topk. SfM and dense are not run on random features;
-  11. one JSON line with every kernel's launches (by path), error, time,
+  11. the user surface on the same folder: the CLI `auto --dense`
+     through `cli.main` in this process (the `ori_desc`, `knn2` and `sgm`
+     launches read around it, each must be non-zero, and >= 90% of the
+     views registered) and once as `python -m tpu3drec_torch auto
+     --dense` in a new process (exit 0, the same number of cameras);
+     a live `MatchServer` (480x640, 1,024 features) on localhost:
+     /health and /methods, 16 concurrent SIFT /match requests from 8
+     threads (phase 3's photos and their known warps in 8-bit levels;
+     every 4th as base64 PNG files, the rest as lists), which must all
+     answer 200, be batched (fewer dispatches than requests, a batch
+     wider than one), launch `ori_desc` and `knn2`, and map the corners
+     within 2 px of the known warp on >= 90% of the answers; one
+     /detect and one ORB /match (the unbatched path); requests/s, p50 /
+     p99 latency and the server's split of each request's time (body,
+     decode, wait, compute); `ori_desc` and `knn2` on the widest served
+     batch's operands, kept as it ran, against their plain versions
+     (phase 2's bars; knn2 bit for bit), timed; phase 3's pair 0, in
+     float and in the requests' 8-bit levels, through the card's
+     batcher against a CPU one with the same draws: row by row (no row
+     clear of a near-tie may differ, and >= 60% of the CPU's rows must
+     be clear), inliers and corners to phase 3's bars, and the raw
+     match count too on the float pair; the CLI `benchmark` subcommand (SIFT
+     and ORB, 2 runs) with no method error and `knn2` launched by its
+     throughput task; `trace_to` leaving a trace and
+     `device_memory_stats` reporting the card;
+  12. one JSON line with every kernel's launches (by path), error, time,
      bound and the plain and library yardsticks; each phase's seconds;
-  12. last line: {"ok": true, "device": {...}}.
+  13. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or without the package beside it, it fails before printing
 any result. It imports nothing of JAX.
@@ -163,6 +188,7 @@ import os
 import re
 import shutil
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -427,6 +453,16 @@ def cuda_ms(torch, fn, reps=REPS):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def kernel_counts(pm, ps, psg):
+    return {"ori_desc": ps.ori_desc.launches, "knn2": pm.knn2_raw.launches,
+            "sgm": psg.sgm_aggregate_batch.launches}
+
+
+def reset_counts(pm, ps, psg):
+    ps.ori_desc.launches = pm.knn2_raw.launches = 0
+    psg.sgm_aggregate_batch.launches = 0
 
 
 def corner_error(Hest, Hgt, h, w):
@@ -1201,16 +1237,16 @@ def run_dense(torch, kind, dev):
     runs = []
     for i in range(DENSE_REPS):
         if i == 0:
-            ps.ori_desc.launches = pm.knn2_raw.launches = 0
-            psg.sgm_aggregate_batch.launches = 0
+            reset_counts(pm, ps, psg)
         res = pipe.run_complete_pipeline(sparse, images, reference_view=ref)
         torch.cuda.synchronize()
         if i == 0:
-            fields["launches"] = psg.sgm_aggregate_batch.launches
+            counts = kernel_counts(pm, ps, psg)
+            fields["launches"] = counts["sgm"]
         runs.append(res["timings_s"])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"launches in one dense run: sgm {fields['launches']}, ori_desc "
-          f"{ps.ori_desc.launches}, knn2 {pm.knn2_raw.launches}")
+          f"{counts['ori_desc']}, knn2 {counts['knn2']}")
     if fields["launches"] == 0:
         fail("the dense path never launched the sgm kernel")
     mp = W * H * (len(DENSE_BX) - 1) / 1e6
@@ -1435,8 +1471,7 @@ def run_sfm(torch, card, dev):
     from tpu3drec_torch.ops.epipolar import gumbel_subsample
     from tpu3drec_torch.ops.ransac import draw_uniform
 
-    ps.ori_desc.launches = pm.knn2_raw.launches = 0
-    psg.sgm_aggregate_batch.launches = 0
+    reset_counts(pm, ps, psg)
     f32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
     K = f32(sfm_K())
 
@@ -1568,8 +1603,7 @@ def run_sfm(torch, card, dev):
     profile_call(torch, lambda: tv.bundle_adjust(prob, cfg), "sfm.", top=8)
     del prob, res
 
-    launches = {"ori_desc": ps.ori_desc.launches, "knn2": pm.knn2_raw.launches,
-                "sgm": psg.sgm_aggregate_batch.launches}
+    launches = kernel_counts(pm, ps, psg)
     print(f"launches in the SfM phase: {launches} (no TPU kernel lies on "
           f"this path: the reference computes it in plain XLA)")
 
@@ -1736,11 +1770,9 @@ def run_pipeline(torch, card, dev):
 
     t_phase = time.perf_counter()
     md, info, gt = make_sfm_scene(n_views=PIPE_VIEWS, n_pts=PIPE_POINTS)
-    ps.ori_desc.launches = pm.knn2_raw.launches = 0
-    psg.sgm_aggregate_batch.launches = 0
+    reset_counts(pm, ps, psg)
     pipe, recon, cold = sfm_pipeline_run(torch, md, info, dev)
-    launches = {"ori_desc": ps.ori_desc.launches, "knn2": pm.knn2_raw.launches,
-                "sgm": psg.sgm_aggregate_batch.launches}
+    launches = kernel_counts(pm, ps, psg)
     print(f"launches in the SfM pipeline run: {launches} (no TPU kernel "
           f"lies on this path: the reference computes it in plain XLA)")
     if any(launches.values()):
@@ -2029,12 +2061,9 @@ def run_folder(torch, card, dev, tmp, names, Rs):
     # the kernels' inputs as the path hands them
     calls, knn2_ops, octaves, restore = spy_kernel_inputs(mt, ps)
     try:
-        ps.ori_desc.launches = pm.knn2_raw.launches = 0
-        psg.sgm_aggregate_batch.launches = 0
+        reset_counts(pm, ps, psg)
         res, cold = folder_chain(torch, folder, os.path.join(tmp, "cold"), dev)
-        launches = {"ori_desc": ps.ori_desc.launches,
-                    "knn2": pm.knn2_raw.launches,
-                    "sgm": psg.sgm_aggregate_batch.launches}
+        launches = kernel_counts(pm, ps, psg)
     finally:
         restore()
     by_metric = {FOLDER_METRIC_BY_DEPTH.get(d, d): n
@@ -2387,13 +2416,10 @@ def run_folder_accurate(torch, card, dev, tmp, names, Rs):
 
     calls, knn2_ops, octaves, restore = spy_kernel_inputs(mt, ps)
     try:
-        ps.ori_desc.launches = pm.knn2_raw.launches = 0
-        psg.sgm_aggregate_batch.launches = 0
+        reset_counts(pm, ps, psg)
         res, cold = folder_chain(torch, folder, os.path.join(tmp, "acc_cold"),
                                  dev, preset=ACC_PRESET)
-        launches = {"ori_desc": ps.ori_desc.launches,
-                    "knn2": pm.knn2_raw.launches,
-                    "sgm": psg.sgm_aggregate_batch.launches}
+        launches = kernel_counts(pm, ps, psg)
     finally:
         restore()
     by_method = {ACC_DEPTH_METHOD.get(d, d): n for d, n in sorted(calls.items())}
@@ -2742,6 +2768,8 @@ def run_dense_rest(torch, card, dev, sparse, images):
     against the CPU plain path on the card's own cloud."""
     import tpu3drec_torch.pipelines.dense as pdense
     from tpu3drec_torch.ops import implicit as imp
+    from tpu3drec_torch.ops import pallas_match as pm
+    from tpu3drec_torch.ops import pallas_sample as ps
     from tpu3drec_torch.ops import pallas_sgm as psg
     from tpu3drec_torch.ops import pointcloud as pc
     from tpu3drec_torch.ops import stereo as st
@@ -2751,10 +2779,10 @@ def run_dense_rest(torch, card, dev, sparse, images):
     launches = {}
 
     def counted(label, fn):
-        psg.sgm_aggregate_batch.launches = 0
+        reset_counts(pm, ps, psg)
         out = fn()
         torch.cuda.synchronize()
-        launches[label] = psg.sgm_aggregate_batch.launches
+        launches[label] = kernel_counts(pm, ps, psg)["sgm"]
         return out
 
     # ---- each implicit mesh method on every view
@@ -3187,19 +3215,20 @@ def deep_folder_engine(torch, card, dev, tmp, names):
     from tpu3drec_torch.ops import match as mt
     from tpu3drec_torch.ops import pallas_match as pm
     from tpu3drec_torch.ops import pallas_sample as ps
+    from tpu3drec_torch.ops import pallas_sgm as psg
     folder = os.path.join(tmp, "imgs")
     pipe = tv.create_pipeline(DEEP_PRESET, device=dev)
     if pipe.methods != ["SuperPoint", "DISK"]:
         fail(f"deep_learning preset: methods {pipe.methods}")
     calls, ops, _, restore = spy_kernel_inputs(mt, ps)
     try:
-        pm.knn2_raw.launches = 0
+        reset_counts(pm, ps, psg)
         t0 = time.perf_counter()
         cold = pipe.match_folder(folder, os.path.join(tmp, "deep_cold"),
                                  resume=False)
         torch.cuda.synchronize()
         cold_s = time.perf_counter() - t0
-        launches = pm.knn2_raw.launches
+        launches = kernel_counts(pm, ps, psg)["knn2"]
     finally:
         restore()
     by_method = {DEEP_DEPTH_METHOD.get(d, d): n for d, n in sorted(calls.items())}
@@ -3420,6 +3449,554 @@ def run_deep(torch, card, dev, tmp, names):
                 launches_by_method=eng["launches_by_method"])
 
 
+# phase 11: the user surface
+SERVE_SHAPE = (480, 640)
+SERVE_FEATURES = 1024
+SERVE_REQUESTS = 16
+SERVE_THREADS = 8
+SERVE_CORNER_PX = 2.0         # phase 3's bar, on >= 90% of the answers
+SERVE_B64_EVERY = 4           # every 4th request as base64 PNG files
+# card vs CPU through the batcher: the share of the CPU's rows that must
+# be clear of the ratio test's near-ties, so that the row-by-row check
+# covers most rows (on an H100 at 700 W: 68.91% with keypoints paired
+# within 1e-4 px, 96.35-100% paired within SERVE_PAIR_PX)
+SERVE_HELD_SHARE = 0.6
+SERVE_PAIR_PX = 1e-2          # card vs CPU: one keypoint on both devices
+SUBPROCESS_TIMEOUT_S = 300
+BENCH_METHODS = ("SIFT", "ORB")
+BENCH_RUNS = 2
+
+
+def last_json(text):
+    """The last JSON object printed (the CLI prints it indented)."""
+    at = text.rfind("\n{")
+    return json.loads(text[at + 1 if at >= 0 else text.index("{"):])
+
+
+def cli_auto(torch, dev, tmp, folder, here, pm, ps, psg):
+    """`auto --dense` through `cli.main` in this process (counters reset,
+    each must launch) and once as `python -m tpu3drec_torch` in a
+    subprocess; both must register the same number of cameras."""
+    import contextlib
+    import io
+    from tpu3drec_torch import cli
+    buf = io.StringIO()
+    reset_counts(pm, ps, psg)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["auto", folder, os.path.join(tmp, "auto_in"),
+                       "--dense", "--device", str(dev)])
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    in_s = time.perf_counter() - t0
+    launches = kernel_counts(pm, ps, psg)
+    out = last_json(buf.getvalue())
+    print(f"cli auto --dense in process: rc {rc}, {out['cameras']} cameras, "
+          f"{out['points']} points, {in_s:.2f} s; launches {launches}")
+    if rc != 0:
+        fail(f"cli auto --dense exited {rc}")
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"cli auto --dense never launched the {name} kernel")
+    if out["cameras"] < FOLDER_REGISTERED_BAR * FOLDER_VIEWS:
+        fail(f"cli auto --dense registered {out['cameras']} of "
+             f"{FOLDER_VIEWS} views")
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run(
+            [sys.executable, "-m", "tpu3drec_torch", "auto", folder,
+             os.path.join(tmp, "auto_sub"), "--dense", "--device", str(dev)],
+            cwd=here, env=env, capture_output=True, text=True,
+            timeout=SUBPROCESS_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"python -m tpu3drec_torch auto did not end in "
+             f"{SUBPROCESS_TIMEOUT_S} s")
+    sub_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"python -m tpu3drec_torch auto --dense exited {r.returncode}: "
+             f"{r.stderr[-2000:]}")
+    sub = last_json(r.stdout)
+    print(f"python -m tpu3drec_torch auto --dense (a new process): "
+          f"{sub['cameras']} cameras, {sub['points']} points, {sub_s:.2f} s "
+          f"wall (interpreter, imports and CUDA start included)")
+    if sub["cameras"] != out["cameras"]:
+        fail(f"the subprocess registered {sub['cameras']} cameras, the "
+             f"in-process run {out['cameras']}")
+    return dict(launches=launches, in_s=in_s, sub_s=sub_s,
+                cameras=out["cameras"])
+
+
+def post_json(url, body, timeout=300):
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=body,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def get_json(url, timeout=60):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.status, json.loads(r.read())
+
+
+def serve_rows(torch, batcher, a, b, ratio):
+    """The batcher's detection, `knn2` and ratio test on one pair (a, b)
+    on its device: keypoints, int8 descriptors and masks of both images,
+    the best neighbour and the decision of each row, on the host."""
+    from tpu3drec_torch.ops.match import quantize_u8
+    imgs = torch.from_numpy(np.stack([a, b]).astype(np.float32)).to(
+        batcher.device)
+    r = torch.tensor([ratio], dtype=torch.float32, device=batcher.device)
+    xy, desc, mask, nn_idx, _, ok = batcher.match_rows(imgs, r)
+    return {"xy": xy.double().cpu().numpy(),
+            "q": quantize_u8(desc).cpu().numpy().astype(np.float64),
+            "mask": mask.cpu().numpy(), "nn": nn_idx[0, :, 0].cpu().numpy(),
+            "ok": ok[0].cpu().numpy()}
+
+
+def serve_rows_agree(g, h, ratio):
+    """Rows of the card's run `g` against the CPU's `h` (`serve_rows`).
+    Keypoints pair up by position (within SERVE_PAIR_PX, one to one: a
+    card keypoint nearest to two of the CPU's pairs with neither; the
+    subpixel step moves a keypoint by more than 1e-4 px between the
+    devices, distinct keypoints lie >= 1 px apart); a paired keypoint's
+    descriptor moved by e = |q_card - q_cpu|, so a distance moves by at
+    most e_row + e_column, and the two smallest of a row by at most w =
+    e_row + the largest e of the columns in either run's top two. A CPU
+    row is held when its keypoint and those columns are paired and its
+    exact distances d0 <= d1 clear the ratio test by that much:
+    |d0 - ratio d1| > (1 + ratio) w, with 1e-4 d1 more for the float32
+    test. A held row takes the same decision on both devices and, when
+    accepted, the same best column (then d1 - d0 > 2 w). Returns counts:
+    the CPU's valid rows, rows unpaired (the row or a top-two column),
+    held, held with another decision, held and accepted with another
+    best column, decisions that differ among the rest, accepted rows
+    outside the compared ones on each device, and the median and
+    largest e."""
+    K = h["mask"].shape[1]
+    to_g, e = [], []
+    for im in (0, 1):
+        a = np.nonzero(h["mask"][im])[0]
+        b = np.nonzero(g["mask"][im])[0]
+        d = np.linalg.norm(h["xy"][im][a][:, None] - g["xy"][im][b][None],
+                           axis=-1)
+        j = d.argmin(1)
+        m = d[np.arange(len(a)), j] < SERVE_PAIR_PX
+        m &= np.bincount(j[m], minlength=len(b))[j] == 1
+        tg = np.full(K, -1)
+        tg[a[m]] = b[j[m]]
+        ei = np.full(K, np.inf)
+        ei[a[m]] = np.linalg.norm(g["q"][im][b[j[m]]] - h["q"][im][a[m]],
+                                  axis=1)
+        to_g.append(tg)
+        e.append(ei)
+    to_h = np.full(K, -1)
+    to_h[to_g[1][to_g[1] >= 0]] = np.nonzero(to_g[1] >= 0)[0]
+
+    def dist(run):
+        q1, q2 = run["q"]
+        d2 = ((q1 * q1).sum(1)[:, None] + (q2 * q2).sum(1)[None]
+              - 2 * q1 @ q2.T)
+        d2 = np.where(run["mask"][1][None], d2, np.inf)
+        return np.sqrt(np.maximum(d2, 0))
+    dh, dg = dist(h), dist(g)
+    rows = np.nonzero(h["mask"][0])[0]
+    c = dict(valid=len(rows), unpaired=0, held=0, differ=0, nn_differ=0,
+             rest_differ=0, ok_unpaired_cpu=0)
+    compared = np.zeros(K, bool)     # card rows of the compared CPU rows
+    for i in rows:
+        gi = to_g[0][i]
+        top_h = np.argsort(dh[i], kind="stable")[:2]
+        top_g = (to_h[np.argsort(dg[gi], kind="stable")[:2]] if gi >= 0
+                 else np.array([-1]))
+        if gi < 0 or (top_g < 0).any():
+            c["unpaired"] += 1
+            c["ok_unpaired_cpu"] += bool(h["ok"][i])
+            continue
+        compared[gi] = True
+        w = e[0][i] + e[1][np.concatenate([top_h, top_g])].max()
+        d0, d1 = dh[i, top_h[0]], dh[i, top_h[1]]
+        same = g["ok"][gi] == h["ok"][i]
+        if not abs(d0 - ratio * d1) > (1 + ratio) * w + 1e-4 * d1:
+            c["rest_differ"] += not same
+            continue
+        c["held"] += 1
+        c["differ"] += not same
+        c["nn_differ"] += bool(h["ok"][i]) and (
+            to_g[1][h["nn"][i]] != g["nn"][gi])
+    c["ok_unpaired_card"] = int((g["ok"] & ~compared).sum())
+    paired = np.concatenate([x[np.isfinite(x)] for x in e])
+    c["e_median"] = float(np.median(paired))
+    c["e_max"] = float(paired.max())
+    return c
+
+
+def serve_card_vs_cpu(torch, batcher, cpu_batcher, pairs, u8):
+    """Two pairs through the card's batcher and a CPU one with the same
+    draws, each held row by row (`serve_rows_agree`: no held row may
+    differ, and >= SERVE_HELD_SHARE of the CPU's rows must be held), and
+    end to end to phase 3's bars on inliers and homography corners; raw
+    match counts within max(2, 2%) on phase 3's float pair. The pair in
+    the 8-bit levels the requests carried has its count gap printed
+    beside the rows behind it."""
+    ratio = 0.75
+    for label, (a, b), count_held in (
+            ("phase 3's pair 0", pairs[0], True),
+            ("the same pair in the 8-bit levels the requests carried",
+             [x.astype(np.float32) / 255.0 for x in u8[0]], False)):
+        got = batcher.submit(a, b, ratio, 4.0)
+        ref = cpu_batcher.submit(a, b, ratio, 4.0)
+        g = serve_rows(torch, batcher, a, b, ratio)
+        h = serve_rows(torch, cpu_batcher, a, b, ratio)
+        if (int(g["ok"].sum()) != got["num_raw_matches"]
+                or int(h["ok"].sum()) != ref["num_raw_matches"]):
+            fail("serving: the batcher's rows disagree with its own answer")
+        c = serve_rows_agree(g, h, ratio)
+        tol = max(2, 0.02 * ref["num_raw_matches"])
+        ce = (corner_error(np.asarray(got["homography"]),
+                           np.asarray(ref["homography"]), *SERVE_SHAPE)
+              if got["homography"] and ref["homography"] else np.inf)
+        gap = abs(got["num_raw_matches"] - ref["num_raw_matches"])
+        print(f"serving, card vs CPU plain path on {label}: raw matches "
+              f"{got['num_raw_matches']} vs {ref['num_raw_matches']} (gap "
+              f"{gap}, phase 3's bar {tol:.2f}"
+              f"{'' if count_held else ', printed'}), inliers "
+              f"{got['num_matches']} vs {ref['num_matches']}, homography "
+              f"corners within {ce:.3f} px; rows: {c['held']} of the CPU's "
+              f"{c['valid']} held clear of the ratio test's near-ties "
+              f"({100 * c['held'] / c['valid']:.2f}%, bar >= "
+              f"{100 * SERVE_HELD_SHARE:.0f}%), of them {c['differ']} with "
+              f"another decision and {c['nn_differ']} accepted with another "
+              f"best column (bar 0 each); decisions differ on "
+              f"{c['rest_differ']} of the "
+              f"{c['valid'] - c['held'] - c['unpaired']} rows at near-ties; "
+              f"{c['unpaired']} rows unpaired (the row or a top-two column "
+              f"found on one device only, within {SERVE_PAIR_PX} px), "
+              f"accepted among them {c['ok_unpaired_cpu']} on the CPU, "
+              f"{c['ok_unpaired_card']} on the card; "
+              f"descriptor moves e median {c['e_median']:.3f}, largest "
+              f"{c['e_max']:.3f} (int8 units)")
+        if (c["differ"] or c["nn_differ"]
+                or c["held"] < SERVE_HELD_SHARE * c["valid"]
+                or abs(got["num_matches"] - ref["num_matches"]) > tol
+                or ce > 0.5 or (count_held and gap > tol)):
+            fail(f"the card's batched /match disagrees with the CPU plain "
+                 f"path on {label}")
+
+
+def serve_phase(torch, card, dev, tmp, pairs, Hgt, pm, ps, psg):
+    """A live MatchServer on localhost: /health and /methods, 16
+    concurrent SIFT /match requests from 8 threads (phase 3's photos and
+    their known warps in 8-bit levels: every SERVE_B64_EVERY-th as base64
+    PNG files written by the package's standard-library writer, the
+    rest as lists), each answer's time split by the server; one /detect,
+    one ORB /match (the unbatched path); `ori_desc` and `knn2` on the
+    widest served batch's operands, kept as the batch ran, against
+    their plain versions; then the card's batcher against a CPU one
+    (`serve_card_vs_cpu`)."""
+    import base64
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    from tpu3drec_torch.data.downloader import write_png_gray
+    from tpu3drec_torch.io import native_decoder
+    from tpu3drec_torch.ops import match as mt
+    from tpu3drec_torch.ops.sift import N_LAYERS
+    from tpu3drec_torch.serve import MatchServer, MicroBatcher
+    try:
+        import PIL   # noqa: F401
+        decoder = "PIL"
+    except ImportError:
+        decoder = ("the native decoder" if native_decoder.available()
+                   else "none (answered 400)")
+    ms = MatchServer(shape=SERVE_SHAPE, max_features=SERVE_FEATURES,
+                     device=dev)
+    t0 = time.perf_counter()
+    httpd = ms.start(host="127.0.0.1", port=0, warmup=True)
+    warm_s = time.perf_counter() - t0
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    # the widest batch's kernel operands, kept as it runs (under the
+    # device lock, so no other call is spied on)
+    kept = {"n": 1}
+    compute = ms.batcher._compute
+
+    def compute_spy(batch):
+        if len(batch) <= kept["n"]:
+            return compute(batch)
+        _, ops, octaves, restore = spy_kernel_inputs(mt, ps)
+        try:
+            return compute(batch)
+        finally:
+            restore()
+            kept.update(n=len(batch), knn2=ops[128], octaves=octaves)
+    try:
+        for route in ("/health", "/methods"):
+            code, body = get_json(url + route)
+            if code != 200:
+                fail(f"server {route}: HTTP {code}")
+        if "SIFT" not in body["methods"]:
+            fail(f"server /methods: {body}")
+        u8 = [(np.rint(a * 255).astype(np.uint8), np.rint(b * 255).astype(
+            np.uint8)) for a, b in pairs]
+
+        def png64(i, k, img):
+            path = os.path.join(tmp, f"serve_{i}_{k}.png")
+            write_png_gray(path, img)
+            with open(path, "rb") as f:
+                return base64.b64encode(f.read()).decode()
+        b64 = [i % SERVE_B64_EVERY == SERVE_B64_EVERY - 1
+               for i in range(len(u8))]
+        bodies = [json.dumps(
+            {"image1": png64(i, 1, a) if b64[i] else a.tolist(),
+             "image2": png64(i, 2, b) if b64[i] else b.tolist(),
+             "method": "SIFT"}).encode() for i, (a, b) in enumerate(u8)]
+        reset_counts(pm, ps, psg)
+        _, before = get_json(url + "/health")
+        lat = [None] * SERVE_REQUESTS
+
+        def one(i):
+            t = time.perf_counter()
+            code, out = post_json(url + "/match", bodies[i])
+            lat[i] = time.perf_counter() - t
+            return code, out
+
+        ms.batcher._compute = compute_spy
+        t0 = time.perf_counter()
+        try:
+            with ThreadPoolExecutor(SERVE_THREADS) as pool:
+                answers = list(pool.map(one, range(SERVE_REQUESTS)))
+        finally:
+            del ms.batcher._compute
+        wall = time.perf_counter() - t0
+        launches = kernel_counts(pm, ps, psg)
+        _, health = get_json(url + "/health")
+        codes = [c for c, _ in answers]
+        if any(c != 200 for c in codes):
+            fail(f"server /match answers {codes}: "
+                 f"{[o for c, o in answers if c != 200][:2]}")
+        errs = []
+        for (_, o), Hg in zip(answers, Hgt):
+            if o["homography"] is None:
+                errs.append(np.inf)
+            else:
+                errs.append(corner_error(np.asarray(o["homography"]), Hg,
+                                         *SERVE_SHAPE))
+        errs = np.array(errs)
+        widths = [o["batched_with"] for _, o in answers]
+        dispatches = (health["batching"]["dispatches"]
+                      - before["batching"]["dispatches"])
+        lat_ms = np.array(lat) * 1e3
+        print(f"server on {card}: {SERVE_REQUESTS} /match requests from "
+              f"{SERVE_THREADS} threads in {wall:.3f} s = "
+              f"{SERVE_REQUESTS / wall:.3f} requests/s; latency p50 "
+              f"{np.percentile(lat_ms, 50):.1f} ms, p99 "
+              f"{np.percentile(lat_ms, 99):.1f} ms; dispatches {dispatches}, "
+              f"batch widths {sorted(widths)}; warm-up {warm_s:.2f} s "
+              f"(dispatches after it {before['batching']['dispatches']}); "
+              f"launches {launches}; corners within {SERVE_CORNER_PX} px on "
+              f"{int((errs < SERVE_CORNER_PX).sum())}/{SERVE_REQUESTS} "
+              f"(median {np.median(errs):.3f} px); mean inliers "
+              f"{np.mean([o['num_matches'] for _, o in answers]):.1f}")
+        # where a request's time went: the server's own split, and the
+        # rest of the client's latency (HTTP, the answer, the thread pool)
+        parts = {k: np.array([o["timing_s"][k] for _, o in answers]) * 1e3
+                 for k in ("body_s", "decode_s", "wait_s", "compute_s")}
+        parts["rest"] = lat_ms - sum(parts.values())
+        for kind, sel in (("list", ~np.array(b64)), ("base64 PNG",
+                                                     np.array(b64))):
+            mb = np.mean([len(bodies[i]) for i in np.nonzero(sel)[0]]) / 1e6
+            print(f"server time split, {int(sel.sum())} {kind} requests "
+                  f"(a body of {mb:.2f} MB"
+                  + (f", decoded by {decoder}" if kind != "list" else "")
+                  + "), median ms: "
+                  + ", ".join(f"{k.replace('_s', '')} "
+                              f"{np.median(v[sel]):.1f}"
+                              for k, v in parts.items())
+                  + f"; latency {np.median(lat_ms[sel]):.1f}")
+        if dispatches >= SERVE_REQUESTS or max(widths) < 2:
+            fail("the server did not batch concurrent /match requests")
+        if launches["ori_desc"] == 0 or launches["knn2"] == 0:
+            fail(f"the server's /match path did not launch ori_desc and "
+                 f"knn2: {launches}")
+        if (errs < SERVE_CORNER_PX).mean() < 0.9:
+            fail("fewer than 90% of the server's homographies map the "
+                 "corners within 2 px of the known warp")
+
+        code, det = post_json(url + "/detect", json.dumps(
+            {"image": u8[0][0].tolist()}).encode())
+        if code != 200 or det["num_keypoints"] <= 0:
+            fail(f"server /detect: HTTP {code}, {det.get('num_keypoints')}")
+        code, orb = post_json(url + "/match", json.dumps(
+            {"image1": u8[0][0].tolist(), "image2": u8[0][1].tolist(),
+             "method": "ORB"}).encode())
+        if code != 200:
+            fail(f"server ORB /match: HTTP {code}: {orb}")
+        print(f"server /detect: {det['num_keypoints']} SIFT keypoints; ORB "
+              f"/match (unbatched): {orb['num_matches']} inliers, "
+              f"{orb['latency_s']:.3f} s")
+        _, health = get_json(url + "/health")
+        if health["stats"]["errors"]:
+            fail(f"server errors: {health['stats']}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+
+    # the kernels on the widest served batch's operands, against their
+    # plain versions with phase 2's bars (knn2 int8 bit for bit)
+    if "knn2" not in kept:
+        fail("no served batch was wider than one")
+    n = kept["n"]
+    L, h, w = kept["octaves"][0].dxs.shape
+    od = ori_desc_octaves(torch, ps, kept["octaves"], profile=False)
+    print(f"ori_desc vs plain at the widest served batch ({n} pairs: "
+          f"{L // (N_LAYERS + 3)} images of {w}x{h}, "
+          f"{len(kept['octaves'])} octaves, "
+          f"{sum(o.meta.shape[0] for o in kept['octaves'])} slots): "
+          f"{od['n_valid']} valid; {od['n_bad']} outside angle<1e-3 rad & "
+          f"cos>0.9999 ({100 * od['frac_bad']:.3f}%, bar <= 0.5%); max "
+          f"|desc err| on the rest {od['max_err']:.3e}; two launches "
+          f"bit-identical; every slot written; the device's slot list and "
+          f"support boxes right; {od['ms']:.4f} ms per detection call "
+          f"(CUDA events), plain {od['plain_ms']:.3f} ms, bound "
+          f"{od['bound_ms']:.4f} ms ({od['bound_by']})")
+    if od["n_valid"] == 0 or od["frac_bad"] > 0.005:
+        fail("ori_desc disagrees with its plain version at the widest "
+             "served batch")
+    kn = folder_knn2(torch, pm, kept["knn2"],
+                     f"the widest served batch of SIFT operands ({n} pairs)")
+
+    cpu_batcher = MicroBatcher(SERVE_SHAPE, SERVE_FEATURES, threading.Lock(),
+                               device="cpu")
+    serve_card_vs_cpu(torch, ms.batcher, cpu_batcher, pairs, u8)
+    return dict(launches=launches, rps=SERVE_REQUESTS / wall,
+                p50=float(np.percentile(lat_ms, 50)),
+                p99=float(np.percentile(lat_ms, 99)),
+                dispatches=dispatches,
+                ori_desc={"serve_ms": od["ms"], "serve_plain_ms": od["plain_ms"],
+                          "serve_bound_ms": od["bound_ms"],
+                          "serve_bound_by": od["bound_by"],
+                          "serve_max_abs_err": od["max_err"]},
+                knn2={f"serve_{k}": v for k, v in kn.items()})
+
+
+def bench_phase(torch, card, dev, tmp, pm, ps, psg):
+    """The CLI `benchmark` subcommand on its synthetic images: no method
+    entry may hold an error, and its throughput task must launch knn2."""
+    import contextlib
+    import io
+    from tpu3drec_torch import cli
+    from tpu3drec_torch.bench import runner
+    thr_launches = {}
+    task_run = runner.ThroughputTask.run
+
+    def spy(self, pairs):
+        before = pm.knn2_raw.launches
+        try:
+            return task_run(self, pairs)
+        finally:
+            thr_launches["knn2"] = pm.knn2_raw.launches - before
+
+    out_dir = os.path.join(tmp, "bench")
+    buf = io.StringIO()
+    reset_counts(pm, ps, psg)
+    runner.ThroughputTask.run = spy
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["benchmark", "--methods", *BENCH_METHODS,
+                           "--num-runs", str(BENCH_RUNS), "--output",
+                           out_dir, "--device", str(dev)])
+    finally:
+        runner.ThroughputTask.run = task_run
+    secs = time.perf_counter() - t0
+    launches = kernel_counts(pm, ps, psg)
+    files = sorted(f for f in os.listdir(out_dir) if f.endswith(".json"))
+    if rc != 0 or len(files) != 1:
+        fail(f"cli benchmark: rc {rc}, files {files}")
+    with open(os.path.join(out_dir, files[0])) as f:
+        res = json.load(f)
+    bad = {f"{task}/{m}": v["error"]
+           for task, body in res["benchmarks"].items()
+           for m, v in body["summary"].items() if "error" in v}
+    if bad:
+        fail(f"cli benchmark: method errors {bad}")
+    perf = res["benchmarks"]["performance"]["summary"]
+    thr = res["benchmarks"]["throughput"]["summary"]
+    acc = res["benchmarks"]["accuracy"]["summary"]
+    print(f"cli benchmark on {card} ({secs:.1f} s; launches {launches}, "
+          f"knn2 in the throughput task {thr_launches.get('knn2')}): "
+          + "; ".join(f"{m}: {thr[m]['batched_pairs_per_s']:.3f} batched "
+                      f"pairs/s ({thr[m]['metric']}, batch "
+                      f"{thr[m]['batch']}, first call "
+                      f"{thr[m]['compile_time_s']:.3f} s), "
+                      f"{perf[m]['fps']:.3f} fps per call, quality "
+                      f"{acc[m]['avg_quality']:.3f}"
+                      for m in BENCH_METHODS)
+          + f"; ranked by {res['analysis']['speed_metric']}")
+    if not thr_launches.get("knn2"):
+        fail("the benchmark's throughput task never launched knn2")
+    return dict(launches=launches, secs=secs,
+                pairs_per_s={m: thr[m]["batched_pairs_per_s"]
+                             for m in BENCH_METHODS},
+                fps={m: perf[m]["fps"] for m in BENCH_METHODS})
+
+
+def tooling_phase(torch, dev, tmp):
+    """trace_to leaves a Chrome trace of card work; device_memory_stats
+    reports the card's keys."""
+    from tpu3drec_torch.ops.sift import detect_and_compute
+    from tpu3drec_torch.utils import device_memory_stats, trace_to
+    trace_dir = os.path.join(tmp, "trace")
+    img = torch.tensor(synthetic_photo(*SERVE_SHAPE, SEED), device=dev)
+    with trace_to(trace_dir):
+        detect_and_compute(img[None], SERVE_FEATURES)
+    traces = [f for f in os.listdir(trace_dir)] if os.path.isdir(
+        trace_dir) else []
+    stats = device_memory_stats()
+    print(f"trace_to wrote {traces}; device_memory_stats: {stats}")
+    if len(traces) != 1 or os.path.getsize(os.path.join(
+            trace_dir, traces[0])) == 0:
+        fail("trace_to left no trace file")
+    keys = ("device_bytes_in_use", "device_peak_bytes", "device_limit_bytes")
+    if dev.type == "cuda" and not all(stats.get(k, 0) > 0 for k in keys):
+        fail(f"device_memory_stats lacks the card's keys: {stats}")
+
+
+def run_user_surface(torch, card, dev, tmp, pairs, Hgt):
+    """Phase 11: the user surface on phase 7's folder in `tmp`/imgs: `auto
+    --dense` through the CLI in process and in a new process, a live
+    /match server with concurrent requests (`pairs`, the known warps
+    `Hgt`), the card's batcher against the CPU's, the CLI `benchmark`
+    subcommand, and the tooling."""
+    from tpu3drec_torch.ops import pallas_match as pm
+    from tpu3drec_torch.ops import pallas_sample as ps
+    from tpu3drec_torch.ops import pallas_sgm as psg
+    here = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    auto = cli_auto(torch, dev, tmp, os.path.join(tmp, "imgs"), here,
+                    pm, ps, psg)
+    serve = serve_phase(torch, card, dev, tmp, pairs, Hgt, pm, ps, psg)
+    bench = bench_phase(torch, card, dev, tmp, pm, ps, psg)
+    tooling_phase(torch, dev, tmp)
+    print(f"user-surface phase on {card}: "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(launches={"cli_auto": auto["launches"],
+                          "serve": serve["launches"],
+                          "benchmark": bench["launches"]},
+                auto=auto, serve=serve, bench=bench,
+                ori_desc=serve["ori_desc"], knn2=serve["knn2"])
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "tpu3drec_torch", "csrc")):
@@ -3476,11 +4053,11 @@ def main():
     # ---- 3. the main path at full size
     pair_fn = tpu3drec_torch.make_pair_fn(max_features=MAX_FEATURES,
                                           num_hypotheses=NUM_HYPOTHESES)
-    ps.ori_desc.launches = pm.knn2_raw.launches = 0
-    psg.sgm_aggregate_batch.launches = 0
+    reset_counts(pm, ps, psg)
     out = pair_fn(img1, img2)
     torch.cuda.synchronize()
-    launches = {"ori_desc": ps.ori_desc.launches, "knn2": pm.knn2_raw.launches}
+    launches = {k: n for k, n in kernel_counts(pm, ps, psg).items()
+                if k != "sgm"}
     print(f"launches in one pair-step call: {launches}")
     for name, n in launches.items():
         if n == 0:
@@ -3578,12 +4155,21 @@ def main():
         t0 = time.perf_counter()
         deep = run_deep(torch, card, dev, tmp, names)
         phase_s["10 deep models"] = time.perf_counter() - t0
-    for f in (folder, accurate, deep):
+
+        # ---- 11. the user surface: CLI, server, benchmark, tooling
+        t0 = time.perf_counter()
+        surface = run_user_surface(
+            torch, card, dev, tmp,
+            list(zip(img1[:SERVE_REQUESTS].cpu().numpy(),
+                     img2[:SERVE_REQUESTS].cpu().numpy())),
+            Hgt[:SERVE_REQUESTS])
+        phase_s["11 user surface"] = time.perf_counter() - t0
+    for f in (folder, accurate, deep, surface):
         fields["knn2"].update(f["knn2"])
-    for f in (folder, accurate):
+    for f in (folder, accurate, surface):
         fields["ori_desc"].update(f["ori_desc"])
 
-    # ---- 11. the kernels line
+    # ---- 12. the kernels line
     sources = {
         "ori_desc": ("tpu3drec_torch/csrc/ori_desc.cu",
                      "tpu3drec/ops/pallas_sample.py:541"),
@@ -3610,11 +4196,13 @@ def main():
                                if name == "knn2" else {}),
                             **({f"dense_rest_{k}": v for k, v in
                                 rest["launches"].items()}
-                               if name == "sgm" else {})},
+                               if name == "sgm" else {}),
+                            **{path: n[name] for path, n in
+                               surface["launches"].items()}},
                         **{k: v for k, v in f.items() if k.startswith(
                             ("full_", "library_bf16", "kernel_ms", "orb_",
                              "folder_", "akaze_", "brisk_", "accurate_",
-                             "sweep_", "deep_"))}})
+                             "sweep_", "deep_", "serve_"))}})
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in phase_s.items()))
     print(f"chip_smoke wall time: {time.perf_counter() - t_main:.1f} s "

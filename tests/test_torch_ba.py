@@ -259,7 +259,7 @@ def test_cg_matches_dense_and_sharded_path_raises(scene):
     cg = tb.bundle_adjust(tp, tb.BAConfig(max_iters=10, schur_solver="cg"))
     np.testing.assert_allclose(cg.points.numpy(), dense.points.numpy(), atol=0.05)
     assert float(cg.cost_final) <= float(dense.cost_final) * 1.05
-    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 #10"):
         tb.bundle_adjust(tp, axis_name="points")
 
 

@@ -324,3 +324,21 @@ def test_features_and_matches_helpers_like_jax():
         for f in ("idx1", "idx2", "score", "mask"):
             np.testing.assert_array_equal(getattr(b, f).numpy(),
                                           np.asarray(getattr(a, f)))
+
+
+def test_package_exports_cover_the_reference():
+    """The reference's `__all__` at the top level, and the public names
+    its `core` package re-exports, are names of the port's."""
+    import tpu3drec
+    import tpu3drec.core
+    import tpu3drec_torch
+    import tpu3drec_torch.core
+    assert set(tpu3drec.__all__) <= set(tpu3drec_torch.__all__)
+    for n in tpu3drec.__all__:
+        assert hasattr(tpu3drec_torch, n), n
+    ref_core = {n for n in dir(tpu3drec.core) if not n.startswith("_")
+                and type(getattr(tpu3drec.core, n)).__name__ != "module"}
+    assert ref_core <= set(tpu3drec_torch.core.__all__), \
+        sorted(ref_core - set(tpu3drec_torch.core.__all__))
+    assert tpu3drec_torch.save_config is tcfg.save_config
+    assert tpu3drec_torch.core.Features is tt.Features

@@ -182,3 +182,72 @@ def test_match_features_metric_choice_and_auto_matcher():
     assert tm._metric_for(b) == "hamming_pm1"
     assert tm.auto_select_matcher(f) == "flann"
     assert tm.auto_select_matcher(b) == "bf"
+
+
+@pytest.mark.parametrize("metric", ["l2", "l2_int8", "hamming_pm1"])
+def test_blockwise_knn_exact(metric, monkeypatch):
+    """Above the threshold the plain version scans column tiles with a
+    running top-2; tiles forced small at a small N give the untiled
+    result (the reference's `knn2_blockwise` against its `knn2`), with
+    scattered masks, a fully masked tile, exact ties across tiles and a
+    last partial tile. Integer metrics exactly, `l2` to rtol 1e-6."""
+    rng = np.random.default_rng(0)
+    n, m, d = 300, 517, 64
+    if metric == "hamming_pm1":
+        d1 = rng.choice([-1.0, 1.0], (2, n, d)).astype(np.float32)
+        d2 = rng.choice([-1.0, 1.0], (2, m, d)).astype(np.float32)
+    elif metric == "l2_int8":
+        d1, d2 = rng.uniform(0, 160, (2, n, d)), rng.uniform(0, 160, (2, m, d))
+        d1, d2 = d1.astype(np.float32), d2.astype(np.float32)
+    else:
+        d1 = rng.standard_normal((2, n, d)).astype(np.float32)
+        d2 = rng.standard_normal((2, m, d)).astype(np.float32)
+    d2[:, 400] = d2[:, 3]                   # a tie across tiles
+    d1[:, 7] = d2[:, 3]
+    m1 = rng.random((2, n)) > 0.1
+    m2 = rng.random((2, m)) > 0.1
+    m2[:, 128:256] = False                  # one tile fully masked
+    m2[:, [3, 400]] = True
+    m2[1] = False                           # a pair with no valid column
+    m2[1, 300] = True                       # ... but one
+    args = [torch.from_numpy(a) for a in (d1, d2, m1, m2)]
+    i_full, v_full = tm.knn2(*args, metric=metric)
+    monkeypatch.setattr(tpm, "BLOCKWISE_THRESHOLD", 256)
+    monkeypatch.setattr(tpm, "BLOCK_COLUMNS", 128)
+    i_blk, v_blk = tm.knn2(*args, metric=metric)
+    np.testing.assert_array_equal(i_blk.numpy(), i_full.numpy())
+    if metric == "l2":
+        np.testing.assert_allclose(v_blk.numpy(), v_full.numpy(), rtol=1e-6)
+    else:
+        np.testing.assert_array_equal(v_blk.numpy(), v_full.numpy())
+    assert int(i_full[0, 7, 0]) == 3        # the tie goes to the lower index
+
+
+def test_large_n_routes_to_blockwise(monkeypatch):
+    """At N >= BLOCKWISE_THRESHOLD the plain version never builds the
+    (B, N, M) matrix: it matches in column tiles (the reference's
+    `_match_impl` switch, `tpu3drec/ops/match.py:241-243`) and agrees
+    with the reference's blockwise kNN on probe rows."""
+    assert tpm.BLOCKWISE_THRESHOLD == jm.BLOCKWISE_THRESHOLD == 8192
+    rng = np.random.default_rng(1)
+    n = tpm.BLOCKWISE_THRESHOLD
+    d1 = rng.standard_normal((n, 32)).astype(np.float32)
+    d2 = rng.standard_normal((n, 32)).astype(np.float32)
+    ones = np.ones(n, bool)
+    widths = []
+    real = tpm._raw_block
+
+    def spy(a, b, bnorm, mask2):
+        widths.append(b.shape[1])
+        return real(a, b, bnorm, mask2)
+
+    monkeypatch.setattr(tpm, "_raw_block", spy)
+    best, dist, ok = tm._match_impl(
+        torch.from_numpy(d1), torch.from_numpy(d2), torch.from_numpy(ones),
+        torch.from_numpy(ones), 0.95, False, "l2")
+    assert widths and max(widths) == tpm.BLOCK_COLUMNS
+    assert len(widths) == n // tpm.BLOCK_COLUMNS
+    i_blk, _ = jm.knn2_blockwise(jnp.asarray(d1[:64]), jnp.asarray(d2),
+                                 jnp.asarray(ones[:64]), jnp.asarray(ones),
+                                 block=2048)
+    np.testing.assert_array_equal(best[:64].numpy(), np.asarray(i_blk[:, 0]))

@@ -381,7 +381,7 @@ def test_exports_byte_equal_given_the_same_matches(runs, tmp_path):
         .from_matching_result(port).get_best_method()
     vis = tconv.ResultConverter.to_visualization(port)
     assert vis.num_methods == 2
-    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
+    with pytest.raises(ValueError, match="images required"):
         vis.plot()
     # the folder run's own exports exist for every pair with matches
     dirs = list((runs["torch"]["dir"] / "colmap").iterdir())

@@ -234,7 +234,7 @@ def test_sharded_global_ba_is_not_run_on_one_card(monkeypatch):
     matches_data, image_info, *_ = make_scene(n_views=3)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     pipe = tv.SfMPipeline(tv.SfMConfig(sharded_ba_min_obs=10), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 #10"):
         pipe.reconstruct(matches_data, image_info)
     # without the sharded request the single-device solve runs
     recon = tv.SfMPipeline(tv.SfMConfig(use_sharded_global_ba=False),

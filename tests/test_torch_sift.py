@@ -229,7 +229,13 @@ def test_port_imports_no_jax():
             "tpu3drec_torch.ops.orb, tpu3drec_torch.ops._orb_pattern_cv, "
             "tpu3drec_torch.io.images, tpu3drec_torch.io.native_decoder, "
             "tpu3drec_torch.io.checkpoint, tpu3drec_torch.io.converters, "
-            "tpu3drec_torch.pipelines.matching, tpu3drec_torch.api; "
+            "tpu3drec_torch.pipelines.matching, tpu3drec_torch.api, "
+            "tpu3drec_torch.utils, tpu3drec_torch.utils.profiling, "
+            "tpu3drec_torch.bench.metrics, tpu3drec_torch.bench.stats, "
+            "tpu3drec_torch.bench.runner, tpu3drec_torch.viz, "
+            "tpu3drec_torch.sfm.calibration, tpu3drec_torch.data, "
+            "tpu3drec_torch.data.downloader, tpu3drec_torch.serve, "
+            "tpu3drec_torch.cli, tpu3drec_torch.compat; "
             "import tpu3drec_torch.ops.orb as o; o._pattern_table('opencv'); "
             "bad = [m for m in ('jax', 'flax', 'tpu3drec', 'bench', "
             "'__graft_entry__') if m in sys.modules]; "

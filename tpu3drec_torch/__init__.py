@@ -40,7 +40,9 @@ from tpu3drec_torch.core.config import (  # noqa: E402
     DEFAULT_CONFIG,
     PRESET_CONFIGS,
     create_config_from_preset,
+    load_config,
     merge_configs,
+    save_config,
     validate_config,
 )
 from tpu3drec_torch.core.types import (  # noqa: E402
@@ -106,6 +108,7 @@ __all__ = [
     "detect_features",
     "find_essential",
     "iterative_refinement",
+    "load_config",
     "make_pair_fn",
     "match_images",
     "merge_configs",
@@ -117,6 +120,7 @@ __all__ = [
     "recover_pose",
     "resolve_device",
     "run_dense_reconstruction",
+    "save_config",
     "solve_pnp_ransac",
     "triangulate_two_view",
     "validate_config",

@@ -1,19 +1,173 @@
 """Synthetic benchmark inputs.
 
-Port of `tpu3drec/bench/synthetic.py:make_sfm_scene`, the input of the
-incremental-SfM benchmark. The rotations come from the port's own
-Rodrigues (`exp_so3_np`) instead of OpenCV's, and the generator is drawn
-in the reference's order, so the scene equals the reference's to float64
-rounding.
+Port of `tpu3drec/bench/synthetic.py`: `SyntheticImageGenerator` (seeded
+images with texture, shapes and noise), `create_transform_pair` (a known
+homography and the image warped by it) and `make_sfm_scene`, the input of
+the incremental-SfM benchmark. All numpy, drawn in the reference's order:
+the images are bit-equal to the reference's. The scene's rotations come
+from the port's own Rodrigues (`exp_so3_np`) instead of OpenCV's, so the
+scene equals the reference's to float64 rounding.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
 from tpu3drec_torch.ops.lie import exp_so3_np
+
+
+class SyntheticImageGenerator:
+    """Seeded images: gradient background, octave noise, shapes, curves,
+    gaussian and salt-and-pepper noise."""
+
+    def __init__(self, width: int = 640, height: int = 480, seed: int = 42):
+        self.width = width
+        self.height = height
+        self.seed = seed
+
+    def _gradient_background(self, rng) -> np.ndarray:
+        h, w = self.height, self.width
+        ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+        a, b = rng.uniform(-1, 1, 2)
+        g = (a * xs / w + b * ys / h)
+        g = (g - g.min()) / max(g.max() - g.min(), 1e-9)
+        return 0.3 + 0.4 * g
+
+    def _octave_noise(self, rng, octaves: int = 4) -> np.ndarray:
+        h, w = self.height, self.width
+        out = np.zeros((h, w), np.float32)
+        amp = 1.0
+        for o in range(octaves):
+            sh, sw = max(h >> (octaves - o), 2), max(w >> (octaves - o), 2)
+            coarse = rng.standard_normal((sh, sw)).astype(np.float32)
+            # bilinear upsample to full size
+            yi = np.linspace(0, sh - 1, h)
+            xi = np.linspace(0, sw - 1, w)
+            y0 = np.clip(yi.astype(int), 0, sh - 2)
+            x0 = np.clip(xi.astype(int), 0, sw - 2)
+            fy = (yi - y0)[:, None]
+            fx = (xi - x0)[None, :]
+            up = ((1 - fy) * (1 - fx) * coarse[y0][:, x0]
+                  + (1 - fy) * fx * coarse[y0][:, x0 + 1]
+                  + fy * (1 - fx) * coarse[y0 + 1][:, x0]
+                  + fy * fx * coarse[y0 + 1][:, x0 + 1])
+            out += amp * up
+            amp *= 0.5
+        out -= out.min()
+        out /= max(out.max(), 1e-9)
+        return out
+
+    def _draw_shapes(self, img: np.ndarray, rng, n_shapes: int = 25) -> None:
+        h, w = img.shape
+        ys, xs = np.mgrid[0:h, 0:w]
+        for _ in range(n_shapes):
+            kind = rng.integers(0, 3)
+            v = rng.uniform(-0.5, 0.5)
+            if kind == 0:  # rectangle
+                y, x = rng.integers(0, h - 20), rng.integers(0, w - 20)
+                hh, ww = rng.integers(10, h // 3), rng.integers(10, w // 3)
+                img[y:y + hh, x:x + ww] += v
+            elif kind == 1:  # circle
+                cy, cx = rng.integers(10, h - 10), rng.integers(10, w - 10)
+                r = rng.integers(5, min(h, w) // 6)
+                img[(ys - cy) ** 2 + (xs - cx) ** 2 < r * r] += v
+            else:  # triangle (half-plane intersection)
+                cy, cx = rng.integers(20, h - 20), rng.integers(20, w - 20)
+                r = rng.integers(10, min(h, w) // 6)
+                band = (np.abs(ys - cy) + np.abs(xs - cx)) < r
+                img[band & (ys >= cy)] += v
+
+    def _draw_curves(self, img: np.ndarray, rng, n_curves: int = 6) -> None:
+        h, w = img.shape
+        for _ in range(n_curves):
+            x = np.arange(w)
+            a = rng.uniform(-0.002, 0.002)
+            b = rng.uniform(-0.5, 0.5)
+            c = rng.integers(10, h - 10)
+            y = (a * (x - w / 2) ** 2 + b * (x - w / 2) + c).astype(int)
+            ok = (y >= 1) & (y < h - 1)
+            v = rng.uniform(-0.4, 0.4)
+            for dy in (-1, 0, 1):
+                img[y[ok] + dy, x[ok]] += v
+
+    def generate(self, noise_level: float = 0.02,
+                 salt_pepper: float = 0.002,
+                 seed: Optional[int] = None) -> np.ndarray:
+        """(H, W) float32 image in [0, 1], fully seeded."""
+        rng = np.random.default_rng(self.seed if seed is None else seed)
+        img = self._gradient_background(rng)
+        img += 0.25 * self._octave_noise(rng)
+        self._draw_shapes(img, rng)
+        self._draw_curves(img, rng)
+        img += noise_level * rng.standard_normal(img.shape).astype(np.float32)
+        if salt_pepper > 0:
+            m = rng.random(img.shape)
+            img[m < salt_pepper / 2] = 0.0
+            img[m > 1 - salt_pepper / 2] = 1.0
+        img -= img.min()
+        img /= max(img.max(), 1e-9)
+        return img.astype(np.float32)
+
+
+def _warp(img: np.ndarray, H: np.ndarray) -> np.ndarray:
+    """Inverse bilinear warp by homography H (src -> dst)."""
+    h, w = img.shape
+    Hinv = np.linalg.inv(H)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    pts = np.stack([xs.ravel(), ys.ravel(), np.ones(h * w)])
+    src = Hinv @ pts
+    sx = src[0] / src[2]
+    sy = src[1] / src[2]
+    sx = np.clip(sx, 0, w - 1.001)
+    sy = np.clip(sy, 0, h - 1.001)
+    x0 = sx.astype(int)
+    y0 = sy.astype(int)
+    fx = sx - x0
+    fy = sy - y0
+    flat = img
+    v = ((1 - fy) * (1 - fx) * flat[y0, x0]
+         + (1 - fy) * fx * flat[y0, x0 + 1]
+         + fy * (1 - fx) * flat[y0 + 1, x0]
+         + fy * fx * flat[y0 + 1, x0 + 1])
+    return v.reshape(h, w).astype(np.float32)
+
+
+def create_transform_pair(img: np.ndarray, transform_type: str = "perspective",
+                          magnitude: float = 0.3, seed: int = 0
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+    """(warped, H_gt) for the perspective, affine, rotation and scale
+    families, H_gt about the image centre."""
+    rng = np.random.default_rng(seed)
+    h, w = img.shape
+    cx, cy = w / 2.0, h / 2.0
+    if transform_type == "rotation":
+        a = magnitude * rng.uniform(0.3, 1.0) * 0.6  # radians
+        H = np.array([[math.cos(a), -math.sin(a), 0],
+                      [math.sin(a), math.cos(a), 0],
+                      [0, 0, 1.0]])
+    elif transform_type == "scale":
+        s = 1.0 + magnitude * rng.uniform(-0.5, 0.5)
+        H = np.diag([s, s, 1.0])
+    elif transform_type == "affine":
+        A = np.eye(2) + magnitude * 0.3 * rng.uniform(-1, 1, (2, 2))
+        H = np.eye(3)
+        H[:2, :2] = A
+        H[:2, 2] = magnitude * 20 * rng.uniform(-1, 1, 2)
+    elif transform_type == "perspective":
+        H = np.eye(3)
+        H[:2, :2] += magnitude * 0.2 * rng.uniform(-1, 1, (2, 2))
+        H[:2, 2] = magnitude * 25 * rng.uniform(-1, 1, 2)
+        H[2, :2] = magnitude * 2e-4 * rng.uniform(-1, 1, 2)
+    else:
+        raise ValueError(f"unknown transform {transform_type!r}")
+    # re-center: warp around the image center
+    T = np.array([[1, 0, -cx], [0, 1, -cy], [0, 0, 1.0]])
+    Ti = np.array([[1, 0, cx], [0, 1, cy], [0, 0, 1.0]])
+    H = Ti @ H @ T
+    return _warp(img, H), H
 
 
 def make_sfm_scene(n_views: int = 50, n_pts: int = 15000,

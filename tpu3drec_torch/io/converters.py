@@ -4,10 +4,9 @@ multi-method containers.
 Port of `tpu3drec/io/converters.py`: `MethodReconstructionData`
 (Nx4 correspondences, scores, COLMAP export), `MultiMethodReconstruction`
 (dict-like, best-method selection, export_all), `save_for_reconstruction`
-/ `load_for_reconstruction`, the CSV export, and `VisualizationData`,
-whose `plot` needs the plotting module (not ported yet: ROADMAP Queue 1
-#7). Results may hold their tensors on any device; everything written is
-numpy.
+/ `load_for_reconstruction`, the CSV export, and `VisualizationData`
+(plotted by `viz.plot_method_comparison`). Results may hold their
+tensors on any device; everything written is numpy.
 """
 
 from __future__ import annotations
@@ -209,9 +208,11 @@ class VisualizationData:
         return len(self.methods)
 
     def plot(self, **kw):
-        raise NotImplementedError(
-            "tpu3drec_torch: VisualizationData.plot needs the plotting "
-            "module, not ported yet (ROADMAP Queue 1 #7)")
+        if self.image1 is None or self.image2 is None:
+            raise ValueError("images required for plotting")
+        from tpu3drec_torch.viz import plot_method_comparison
+        return plot_method_comparison(self.image1, self.image2,
+                                      self.result, **kw)
 
 
 class ResultConverter:

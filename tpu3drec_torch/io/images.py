@@ -9,12 +9,16 @@ the pair-mode generators. Pixels are float32 grayscale in [0, 1].
 Decoding: `.npy` files are read with numpy; JPEG and PNG go through the
 native decoder (`io/native_decoder.py`) when it loads, else PIL. PIL is
 imported only inside the functions that decode with it, so a machine
-without PIL imports this module and reads `.npy` folders.
+without PIL imports this module and reads `.npy` folders. Arrays are
+resized by `resize_u8`, a numpy port of PIL's default `Image.resize` for
+8-bit grayscale (bit-equal to it), so a `.npy` folder with `resize_to`
+needs no PIL either.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from collections import OrderedDict
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
@@ -38,6 +42,82 @@ class ImageMetadata:
         return dataclasses.asdict(self)
 
 
+# PIL's fixed-point resampling: coefficients carry 22 fraction bits
+_PRECISION_BITS = 32 - 8 - 2
+
+
+def _bicubic(x: np.ndarray) -> np.ndarray:
+    """PIL's bicubic kernel (a = -0.5), support 2."""
+    a = -0.5
+    x = np.abs(x)
+    near = ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    far = (((x - 5) * x + 8) * x - 4) * a
+    return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
+
+
+@functools.lru_cache(maxsize=32)
+def _resize_coeffs(in_size: int, out_size: int) -> np.ndarray:
+    """(out_size, in_size) int64 fixed-point weights of one axis, as PIL's
+    `precompute_coeffs` + `normalize_coeffs_8bpc` build them."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ss = 1.0 / filterscale
+    W = np.zeros((out_size, in_size), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        # C casts truncate toward zero
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        x = np.arange(xmax, dtype=np.float64)
+        w = _bicubic(((x + xmin) - center + 0.5) * ss)
+        ww = 0.0
+        for v in w:          # PIL's sequential sum
+            ww += v
+        if ww != 0.0:
+            w = w / ww
+        fixed = w * (1 << _PRECISION_BITS)
+        W[xx, xmin:xmin + xmax] = np.trunc(
+            np.where(w < 0, fixed - 0.5, fixed + 0.5)).astype(np.int64)
+    W.flags.writeable = False     # cached: shared by every caller
+    return W
+
+
+def _resample_pass(img: np.ndarray, W: np.ndarray, axis: int) -> np.ndarray:
+    """One uint8 pass: the rounded fixed-point sums clipped to 0..255. The
+    products and sums are integers below 2**53, so a float64 product is
+    exact in any summation order."""
+    src = img.astype(np.float64)
+    acc = (src @ W.T.astype(np.float64) if axis == 1
+           else W.astype(np.float64) @ src)
+    acc = acc.astype(np.int64) + (1 << (_PRECISION_BITS - 1))
+    out = np.clip(acc >> _PRECISION_BITS, 0, 255)
+    return np.where(acc <= 0, 0, out).astype(np.uint8)
+
+
+def resize_u8(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """(H, W) uint8 -> `size` (H', W') uint8, bit-equal to PIL's
+    `Image.fromarray(img).resize((W', H'))`: the bicubic filter, support
+    widened by the downscale factor, a horizontal then a vertical pass,
+    each rounded and clipped to uint8."""
+    img = np.asarray(img, np.uint8)
+    h, w = img.shape
+    oh, ow = int(size[0]), int(size[1])
+    out = img.copy()
+    if ow != w:
+        out = _resample_pass(out, _resize_coeffs(w, ow), axis=1)
+    if oh != h:
+        out = _resample_pass(out, _resize_coeffs(h, oh), axis=0)
+    return out
+
+
+def resize_unit(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """float image in [0, 1] -> `size`, through 8 bits as the reference
+    resizes arrays: clipped, truncated to uint8, resized, over 255."""
+    u8 = (np.clip(img, 0.0, 1.0) * 255.0).astype(np.uint8)
+    return resize_u8(u8, size).astype(np.float32) / 255.0
+
+
 def _read_image(path: str, resize_to: Optional[Tuple[int, int]] = None
                 ) -> np.ndarray:
     """Decode to float32 grayscale [0,1]; optional (H, W) resize."""
@@ -50,10 +130,7 @@ def _read_image(path: str, resize_to: Optional[Tuple[int, int]] = None
         if img.max() > 2.0:
             img = img / 255.0
         if resize_to is not None and img.shape != tuple(resize_to):
-            from PIL import Image
-            pil = Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8))
-            pil = pil.resize((resize_to[1], resize_to[0]))
-            img = np.asarray(pil, np.float32) / 255.0
+            img = resize_unit(img, resize_to)
         return img
     from PIL import Image
     with Image.open(p) as im:

@@ -252,7 +252,7 @@ def bundle_adjust(prob: BAProblem,
     if axis_name is not None:
         raise NotImplementedError(
             "bundle_adjust(axis_name=...): the sharded point-block path "
-            "(parallel/ba.py) is ROADMAP Queue 1 #7, not ported yet")
+            "(parallel/ba.py) is ROADMAP Queue 1 #10, not ported yet")
     C = prob.cam_params.shape[0]
     P = prob.points.shape[0]
     dev = prob.cam_params.device

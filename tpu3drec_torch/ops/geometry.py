@@ -316,7 +316,9 @@ def find_homography(pts1: torch.Tensor, pts2: torch.Tensor,
                     refit: bool = True,
                     u: Optional[torch.Tensor] = None) -> RansacResult:
     """RANSAC homography (cv2.findHomography(RANSAC) equivalent) over
-    (N, 2) or (B, N, 2) points; `u` injects the (K, 4) uniforms."""
+    (N, 2) or (B, N, 2) points; `threshold` (pixels) is a float or a (B,)
+    tensor, one per pair; `u` injects the (K, 4) uniforms, or (B, K, 4)
+    ones per pair."""
     single = pts1.ndim == 2
     if single:
         pts1, pts2 = pts1[None], pts2[None]
@@ -332,7 +334,10 @@ def find_homography(pts1: torch.Tensor, pts2: torch.Tensor,
         H2, ok = solve_homography_dlt(pts1, pts2,
                                       result.inliers.to(pts1.dtype))
         res2 = homography_transfer_error(H2, pts1, pts2)
-        inl2 = (res2 <= threshold ** 2) & mask
+        thr2 = threshold ** 2
+        if isinstance(thr2, torch.Tensor) and thr2.ndim:
+            thr2 = thr2[:, None]
+        inl2 = (res2 <= thr2) & mask
         better = ok & (inl2.sum(-1) >= result.num_inliers) & result.success
         model = torch.where(better[:, None, None], H2, result.model)
         inliers = torch.where(better[:, None], inl2, result.inliers)

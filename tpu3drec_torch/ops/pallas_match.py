@@ -36,9 +36,27 @@ def _big(dtype):
     return INT_BIG if dtype == torch.int8 else F32_BIG
 
 
-def knn2_plain(a: torch.Tensor, b: torch.Tensor, bnorm: torch.Tensor,
-               mask2: torch.Tensor):
-    """Plain PyTorch version: (idx (B, N, 2) int32, val (B, N, 2))."""
+# Columns at which the plain version stops building the whole (B, N, M)
+# matrix and scans column tiles with a running top-2 instead (the
+# reference's `ops/match.py:BLOCKWISE_THRESHOLD` and `knn2_blockwise`)
+BLOCKWISE_THRESHOLD = 8192
+BLOCK_COLUMNS = 4096
+
+
+def _top2(raw, big):
+    """(idx, val) of the two smallest values along the last axis, ties to
+    the lowest index (the reference's `_top2_min`)."""
+    i1 = torch.argmin(raw, dim=-1, keepdim=True)
+    v1 = raw.gather(-1, i1)
+    cols = torch.arange(raw.shape[-1], device=raw.device)
+    masked = torch.where(cols == i1, big, raw)
+    i2 = torch.argmin(masked, dim=-1, keepdim=True)
+    v2 = masked.gather(-1, i2)
+    return torch.cat([i1, i2], -1), torch.cat([v1, v2], -1)
+
+
+def _raw_block(a, b, bnorm, mask2):
+    """Masked `bnorm - 2 a.b` of every row of `a` against the rows of `b`."""
     if a.dtype == torch.int8:
         # int8 products summed over D <= 1024 stay below 2**24, so a
         # float32 product is exact whatever its summation order
@@ -48,15 +66,37 @@ def knn2_plain(a: torch.Tensor, b: torch.Tensor, bnorm: torch.Tensor,
         dot = torch.matmul(a, b.transpose(1, 2))
     raw = bnorm[:, None, :] - 2 * dot
     big = torch.full((), _big(a.dtype), dtype=raw.dtype, device=raw.device)
-    raw = torch.where(mask2[:, None, :], raw, big)
-    i1 = torch.argmin(raw, dim=-1, keepdim=True)
-    v1 = raw.gather(-1, i1)
-    cols = torch.arange(raw.shape[-1], device=raw.device)
-    masked = torch.where(cols == i1, big, raw)
-    i2 = torch.argmin(masked, dim=-1, keepdim=True)
-    v2 = masked.gather(-1, i2)
-    return (torch.cat([i1, i2], -1).to(torch.int32),
-            torch.cat([v1, v2], -1))
+    return torch.where(mask2[:, None, :], raw, big), big
+
+
+def knn2_plain(a: torch.Tensor, b: torch.Tensor, bnorm: torch.Tensor,
+               mask2: torch.Tensor):
+    """Plain PyTorch version: (idx (B, N, 2) int32, val (B, N, 2)).
+
+    Once N or M reaches `BLOCKWISE_THRESHOLD` the columns are scanned in
+    tiles of `BLOCK_COLUMNS` with a running top-2, so the (B, N, M)
+    matrix never exists; the merge keeps earlier (lower) columns first
+    on ties, so both forms give the same result."""
+    M = b.shape[1]
+    if max(a.shape[1], M) < BLOCKWISE_THRESHOLD or M <= BLOCK_COLUMNS:
+        raw, big = _raw_block(a, b, bnorm, mask2)
+        idx, val = _top2(raw, big)
+        return idx.to(torch.int32), val
+    idx = val = None
+    for off in range(0, M, BLOCK_COLUMNS):
+        sl = slice(off, off + BLOCK_COLUMNS)
+        raw, big = _raw_block(a, b[:, sl], bnorm[:, sl], mask2[:, sl])
+        li, lv = _top2(raw, big)
+        li = li + off
+        if idx is None:
+            idx, val = li, lv
+            continue
+        # four candidates, the running pair (lower columns) first
+        j, v = _top2(torch.cat([val, lv], -1), big)
+        idx, val = torch.cat([idx, li], -1).gather(-1, j), v
+    # a slot with no valid column is column 0 in the untiled form
+    idx = torch.where(val == big, torch.zeros_like(idx), idx)
+    return idx.to(torch.int32), val
 
 
 def _check(a, b, bnorm, mask2):

@@ -21,7 +21,7 @@ depth-grid or Delaunay mesh; a `RuntimeError` (a CUDA or kernel fault)
 propagates. Besides the stereo stage's ranges (`ops/stereo.py`), the
 later stages run under profiler ranges `dense.outliers`,
 `dense.normals`, `dense.cloud_quality`, `dense.mesh_extract` and
-`dense.mesh_post`. Not ported yet (ROADMAP.md Queue 1 #7): the sharded
+`dense.mesh_post`. Not ported yet (ROADMAP.md Queue 1 #10): the sharded
 multi-card stereo branch, which raises NotImplementedError.
 """
 
@@ -163,7 +163,7 @@ class DenseReconstructionPipeline:
                 and torch.cuda.device_count() > 1 and len(others) > 1):
             raise NotImplementedError(
                 "sharded multi-card stereo is not ported yet (ROADMAP.md "
-                "Queue 1 #7); pass use_sharded_stereo=False for one card")
+                "Queue 1 #10); pass use_sharded_stereo=False for one card")
         t_start = time.perf_counter()
 
         def cam_of(n):

@@ -92,7 +92,7 @@ class SfMConfig:
     use_local_ba: bool = True
     # the final global BA shards point blocks over the cards when more
     # than one is visible and the problem is big enough; the sharded
-    # solve is not ported yet (ROADMAP Queue 1 #7), so that case raises
+    # solve is not ported yet (ROADMAP Queue 1 #10), so that case raises
     use_sharded_global_ba: bool = True
     sharded_ba_min_obs: int = 20_000
     ba_max_iters: int = 20
@@ -888,7 +888,7 @@ class SfMPipeline:
 
         With more than one card visible and a big enough problem, the
         reference shards point blocks over the cards. That solve is not
-        ported (ROADMAP Queue 1 #7): the case raises instead of quietly
+        ported (ROADMAP Queue 1 #10): the case raises instead of quietly
         running on one card."""
         if (self.config.use_sharded_global_ba
                 and torch.cuda.device_count() > 1
@@ -898,7 +898,7 @@ class SfMPipeline:
                 and recon.num_observations >= 10):
             raise NotImplementedError(
                 "the sharded global BA over several cards is ROADMAP "
-                "Queue 1 #7, not ported yet; pass "
+                "Queue 1 #10, not ported yet; pass "
                 "SfMConfig(use_sharded_global_ba=False) for the "
                 "single-card solve")
         return self._run_ba(recon, optimize_cams=None,
