@@ -18,9 +18,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
      shape, every column valid) and on `KNN2_CASES` (scattered masks,
      duplicate columns, no or one valid column, ragged N and M, D 64 to
      1024, `hamming_pm1`, norms too wide for the packed fold), each twice
-     for identical bits, and float32 on two pairs; `knn2` is timed at the
-     path's input and at full occupancy beside two yardsticks (f32 matmul
-     + topk, a bf16 tensor-core GEMM + topk);
+     for identical bits, and float32 on two pairs, at full occupancy at
+     the deep folder's shapes and on `KNN2_F32_CASES` (scattered masks,
+     ties, no or one valid column, ragged N and M, D 37 to 1024, rows off
+     a 16-byte boundary), each twice for identical bits; `knn2` is timed
+     at the path's input and at full occupancy beside two yardsticks (f32
+     matmul + topk, a bf16 tensor-core GEMM + topk);
   3. the main path: `make_pair_fn(max_features=2048, num_hypotheses=256)`
      on 96 pairs of 480x640 images, each a synthetic photo and a known
      similarity warp of it. Launch counts are read around one call, then
@@ -850,6 +853,24 @@ KNN2_CASES = [
 ]
 # the full-occupancy stress input: the path's shape, every column valid
 KNN2_FULL = (BATCH, MAX_FEATURES, MAX_FEATURES, 128)
+# knn2's float32 path (metric "l2", unit-scale descriptors) beyond the
+# path's inputs, held with knn2_f32_check's bars and run twice for
+# identical bits; "offset": scattered, both operands one float past a
+# 16-byte boundary, so every row is off one
+KNN2_F32_CASES = [
+    ("scattered masks", "l2", 8, 2048, 2048, 256, "scattered"),
+    ("duplicate columns", "l2", 4, 512, 640, 128, "duplicates"),
+    ("no / one valid column", "l2", 4, 256, 300, 128, "edge"),
+    ("N, M on no tile", "l2", 3, 1000, 777, 128, "scattered"),
+    ("D 37", "l2", 2, 300, 500, 37, "scattered"),
+    ("D 64", "l2", 2, 300, 500, 64, "scattered"),
+    ("D 100", "l2", 2, 300, 500, 100, "scattered"),
+    ("D 1024", "l2", 2, 300, 500, 1024, "scattered"),
+    ("rows off a 16-byte boundary", "l2", 2, 300, 500, 128, "offset"),
+]
+# float32 at full occupancy: the deep folder's shapes, every column valid
+KNN2_F32_FULL = [(8, MAX_FEATURES, MAX_FEATURES, 256),
+                 (8, MAX_FEATURES, MAX_FEATURES, 128)]
 
 
 def sift_like_int8(torch, shape, gen):
@@ -858,6 +879,12 @@ def sift_like_int8(torch, shape, gen):
     `quantize_u8` does."""
     u = torch.rand(shape, generator=gen, device=gen.device).clamp_(min=1e-12)
     return ((-30.0 * torch.log(u)).round_().clamp_(0, 255) - 128).to(torch.int8)
+
+
+def unit_rows(torch, shape, gen):
+    """float32 rows of unit L2 norm, as SuperPoint's and DISK's descriptors."""
+    x = torch.randn(shape, generator=gen, device=gen.device)
+    return x / x.norm(dim=-1, keepdim=True)
 
 
 def knn2_operands(torch, metric, B, N, M, D, masks, seed, dev="cuda"):
@@ -869,6 +896,17 @@ def knn2_operands(torch, metric, B, N, M, D, masks, seed, dev="cuda"):
              * 2 - 1).to(torch.int8)
         b = (torch.randint(0, 2, (B, M, D), generator=gen, device=dev)
              * 2 - 1).to(torch.int8)
+    elif metric == "l2":
+        a = unit_rows(torch, (B, N, D), gen)
+        b = unit_rows(torch, (B, M, D), gen)
+        k = min(N, M // 2)
+        src = torch.randint(0, N, (B, k), generator=gen, device=dev)
+        rows = a.gather(1, src[..., None].expand(B, k, D))
+        # copies 0.1 to 0.3 away, renormalised
+        noise = unit_rows(torch, (B, k, D), gen) \
+            * (0.1 + 0.2 * torch.rand(B, k, 1, generator=gen, device=dev))
+        b[:, :k] = rows + noise
+        b[:, :k] /= b[:, :k].norm(dim=-1, keepdim=True)
     else:
         a = sift_like_int8(torch, (B, N, D), gen)
         b = sift_like_int8(torch, (B, M, D), gen)
@@ -894,10 +932,20 @@ def knn2_operands(torch, metric, B, N, M, D, masks, seed, dev="cuda"):
         m2[2, 0] = True
     if metric == "hamming_pm1":
         n2 = torch.zeros(B, M, dtype=torch.int32, device=dev)
+    elif metric == "l2":
+        n2 = (b * b).sum(-1)
     else:
         n2 = b.to(torch.int32).square().sum(-1, dtype=torch.int32)
     if masks == "wide_norms":
         n2[1] += 1 << 24
+    if masks == "offset":
+        # contiguous views one element past an allocation's 16-byte start
+        def shift(t):
+            buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+            v = buf[1:].view(t.shape)
+            v.copy_(t)
+            return v
+        a, b = shift(a), shift(b)
     return a, b, n2, m2
 
 
@@ -991,8 +1039,10 @@ def check_knn2(torch, desc, mask, B):
     """knn2 kernel vs plain: int8 bit for bit (indices and raw values on
     every row, two launches identical) on all B pairs of the path, on the
     full-occupancy stress input and on `KNN2_CASES`; float32 on two pairs
-    (indices equal except near-ties, values within 1e-4). Times the path's
-    input and the stress input."""
+    (indices equal except near-ties, values within 1e-4), and with
+    `knn2_f32_check`'s bars at full occupancy (`KNN2_F32_FULL`) and on
+    `KNN2_F32_CASES`, each launch twice for identical bits. Times the
+    path's input and the stress inputs."""
     from tpu3drec_torch.ops import match as mt
     from tpu3drec_torch.ops import pallas_match as pm
     q = mt.quantize_u8(desc)
@@ -1017,6 +1067,9 @@ def check_knn2(torch, desc, mask, B):
     mf = mask[B:B + 2].contiguous()
     fi_k, fv_k = pm.knn2_raw(f1, f2, sq2, mf)
     fi_p, fv_p = pm.knn2_plain(f1, f2, sq2, mf)
+    fi_k2, fv_k2 = pm.knn2_raw(f1, f2, sq2, mf)
+    if not (torch.equal(fi_k, fi_k2) and torch.equal(fv_k, fv_k2)):
+        fail("knn2 f32: two launches differ at the path's pairs")
     sq1 = (f1 * f1).sum(-1)[..., None]
     dk = torch.sqrt(torch.clamp(fv_k + sq1, min=0))
     dp = torch.sqrt(torch.clamp(fv_p + sq1, min=0))
@@ -1029,7 +1082,20 @@ def check_knn2(torch, desc, mask, B):
         fail("knn2 f32: best indices differ away from near-ties")
     print(f"knn2 f32 vs plain at {tuple(f1.shape)}: distances within rtol/atol "
           f"1e-4; best indices equal on all {int(clear.sum())} valid rows "
-          f"without a near-tie (of {int(mask[:2].sum())} valid rows)")
+          f"without a near-tie (of {int(mask[:2].sum())} valid rows); two "
+          f"launches bit-identical")
+
+    f32 = {}
+    for i, shape in enumerate(KNN2_F32_FULL):
+        r = knn2_f32_check(torch, pm, knn2_operands(
+            torch, "l2", *shape, "all", SEED + 21 + i),
+            f"full occupancy {shape}")
+        f32.update({f"f32_full_{shape[3]}_{k}": r[k] for k in (
+            "ms", "bound_ms", "plain_ms", "library_ms", "max_abs_err")})
+    f32["f32_cases_max_abs_err"] = max(
+        knn2_f32_check(torch, pm, knn2_operands(
+            torch, metric, *shape, SEED + 30 + i), label)["max_abs_err"]
+        for i, (label, metric, *shape) in enumerate(KNN2_F32_CASES))
 
     path = knn2_times(torch, pm, a, b, n2, m2, "the path's input")
     plain_ms = cuda_ms(torch, lambda: pm.knn2_plain(a, b, n2, m2), reps=2)
@@ -1043,7 +1109,7 @@ def check_knn2(torch, desc, mask, B):
                 full_ms=stress["ms"], full_bound_ms=stress["bound_ms"],
                 full_bound_by=stress["bound_by"],
                 full_library_ms=stress["library_ms"],
-                full_library_bf16_ms=stress["library_bf16_ms"])
+                full_library_bf16_ms=stress["library_bf16_ms"], **f32)
 
 
 def _device_us(ev, self_only):
@@ -3152,15 +3218,19 @@ def lg_near_ties(torch, la, f0, f1, bar):
 
 
 def knn2_f32_check(torch, pm, ops, label):
-    """knn2's float32 kernel on operands the folder engine handed it,
-    against the plain version on the card: distances within KNN2_F32_TOL
-    (relative and absolute), the best index equal wherever the exact top
-    two are farther apart than that, the second wherever the second and
-    third are too; timed beside the plain version, the library call
-    (f32 bmm + topk, TF32 off) and the bound."""
+    """knn2's float32 kernel on `ops` (a, b, bnorm, mask2), against the
+    plain version on the card: two launches bit-identical, distances
+    within KNN2_F32_TOL (relative and absolute), the best index equal
+    wherever the exact top two are farther apart than that, the second
+    wherever the second and third are too; timed beside the plain
+    version, the library call (f32 bmm + topk, TF32 off) and the bound."""
     a, b, n2, m2 = ops
     i_k, v_k = pm.knn2_raw(a, b, n2, m2)
+    i_k2, v_k2 = pm.knn2_raw(a, b, n2, m2)
     i_p, v_p = pm.knn2_plain(a, b, n2, m2)
+    torch.cuda.synchronize()
+    if not (torch.equal(i_k, i_k2) and torch.equal(v_k, v_k2)):
+        fail(f"knn2 f32: two launches differ at {label}")
     sq1 = (a * a).sum(-1)[..., None]
 
     def dist(v):
@@ -3198,7 +3268,8 @@ def knn2_f32_check(torch, pm, ops, label):
           f"({m_valid} of {m2.numel()} columns valid): distances within "
           f"{KNN2_F32_TOL} of the plain version (max |err| {err:.3e}); best "
           f"index equal on all {int(c1.sum())} rows clear of a near-tie, "
-          f"second on {int(c2.sum())} (of {c1.numel()} rows); "
+          f"second on {int(c2.sum())} (of {c1.numel()} rows); two launches "
+          f"bit-identical; "
           f"{ms:.4f} ms per call (CUDA events), plain {plain:.3f} ms, "
           f"f32 bmm + topk {lib:.3f} ms, bound {bound:.4f} ms ({by})")
     return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
@@ -4200,7 +4271,7 @@ def main():
                             **{path: n[name] for path, n in
                                surface["launches"].items()}},
                         **{k: v for k, v in f.items() if k.startswith(
-                            ("full_", "library_bf16", "kernel_ms", "orb_",
+                            ("full_", "library_bf16", "kernel_ms", "orb_", "f32_",
                              "folder_", "akaze_", "brisk_", "accurate_",
                              "sweep_", "deep_", "serve_"))}})
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"

@@ -46,14 +46,53 @@
 //     quad of lanes sharing a row merges (value, column) lexicographically
 //     at the end. No atomics on values: the result does not depend on
 //     scheduling.
-// The float32 path (l2) stays on the CUDA cores (fmaf: TF32 or bf16 would
-// change its answers) and sweeps the same column list.
+//
+// float32 design (knn2_f32_kernel, metric l2): replaces fused_knn2's own
+// float32 computation (tpu3drec/ops/pallas_match.py:91). Each distance is
+// one fmaf chain over k ascending from 0, then bnorm - 2 * acc, inserted in
+// ascending column order: TF32, bf16 or 3xTF32 tensor-core products, or a
+// split of D, would change its answers. So it is bound by operations on the
+// CUDA cores, 2 N x (valid columns) x D at 67 TFLOP/s; the bytes (A and the
+// valid rows of B, once) take ~1/25 of that time at 2,048 rows by 2,048
+// columns, at any D. The design keeps the FFMA pipes fed:
+//   - the same column list (knn2_list_kernel); a CTA is 256 threads, 128
+//     rows of one pair by 128 listed columns a tile, 8 x 8 values a thread;
+//   - A's rows and the tile's listed rows of B stream through a 4-stage
+//     ring of 32-float depth chunks (36,864 bytes of operands and 1,024 of
+//     the tile's columns and norms a stage, 151,552 bytes in all, the same
+//     at any D), gathered with cp.async 16 bytes a thread (4 bytes when
+//     D % 4 != 0 or a row is off a 16-byte boundary, zero-filled past D and
+//     N); the list entries are read a tile ahead;
+//   - row-major chunks with a stride of 36 floats: a thread reads a float4
+//     along k for each of its 8 rows and 8 columns, one 16-byte load per 16
+//     FFMA, and 8 consecutive rows start on 8 different bank quads, so
+//     neither the copies nor the fragment reads conflict;
+//   - one CTA a SM with no register cap: ptxas gives it 254 registers and
+//     no spills (sm_90a). Two CTAs a SM cap it at 128 and spill 100-292
+//     bytes, even with the running top-2s in shared memory, and measured
+//     3-39% slower on an H100;
+//   - each (pair, row block)'s tiles are split into segments so that the
+//     grid fills the card's CTA slots (132 on an H100: the deep folder's 8
+//     pairs of 2,048 rows take one segment, two pairs of 2,048 rows four);
+//     each writes a partial top-2 and knn2_f32_merge_kernel merges them by
+//     (value, column), which is exact, so the answer does not depend on
+//     the split;
+//   - the fold: each thread inserts its values in ascending column order
+//     and the 16 lanes sharing a row merge lexicographically at the end. No
+//     atomics on values: the output is bit-identical run to run.
+// What still holds it back: the fold (~9 instructions a value, ~7% of the
+// issue slots at D = 128, half that at 256) and the barrier a chunk with
+// only 8 warps a SM to cover it; cuBLAS's float32 GEMM alone reaches
+// 55-64% of the same bound at these shapes.
 //
 // Bars: chip_smoke.py holds the int8 kernel bit for bit against the plain
 // version (indices and raw values on every row, two launches identical) at
 // the pair step's input, at full occupancy and on edge inputs (scattered
 // masks, ties, no or one valid column, ragged N and M, D 64 to 1024, norms
-// too wide for the packed keys); the float32 kernel within rtol/atol 1e-4.
+// too wide for the packed keys); the float32 kernel within rtol/atol 1e-4 of
+// the plain version (cuBLAS sums in another order), indices equal off
+// near-ties, two launches identical, at the deep folder's operands, at full
+// occupancy and on its own edge inputs (D 37 to 1024, rows off 16 bytes).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,10 +115,26 @@ constexpr int LOAD_ROWS = NT / 8;          // B rows one pass of 16-byte copies 
 constexpr int ROW_PASSES = BN / LOAD_ROWS;
 
 // ---- float32 CUDA-core kernel
-constexpr int F_BN = 64;           // rows of A per CTA
-constexpr int F_BM = 64;           // listed columns per tile
-constexpr int F_KW = 32;           // floats of depth per shared-memory chunk
 constexpr int F_NT = 256;
+constexpr int F_ROWS = 128;                // rows of A per CTA
+constexpr int F_TR = 8;                    // rows a thread holds
+constexpr int F_TC = 64 / F_TR;            // listed columns a thread holds
+constexpr int F_RT = F_ROWS / F_TR;        // threads along the rows
+constexpr int F_CT = BN / F_TC;            // threads along the columns (lanes of a row)
+constexpr int F_KC = 32;                   // floats of depth per chunk
+constexpr int F_LD = F_KC + 4;             // a row's stride in shared memory, floats
+constexpr int F_STAGES = 4;                // ring of (tile, chunk) units
+constexpr int F_MINB = 1;                  // CTAs a SM: no cap on registers
+constexpr int F_CPR = F_KC / 4;            // 16-byte copies per row of a chunk
+constexpr int F_RPP = F_NT / F_CPR;        // rows one pass of copies covers
+constexpr int F_PASSES = F_ROWS / F_RPP;
+// a stage: A's chunk, B's chunk (F_LD floats a row), the tile's columns, norms
+constexpr int F_STAGE = 2 * F_ROWS * F_LD + 2 * BN;
+constexpr int F_SMEM = F_STAGES * F_STAGE * (int)sizeof(float);   // 151,552
+constexpr int F_MAX_SEGS = 16;
+static_assert(F_RT * F_CT == F_NT && F_ROWS % F_RPP == 0 && F_KC % 4 == 0,
+              "float32 tile layout");
+static_assert(F_CT <= 32 && 32 % F_CT == 0, "a row's lanes share a warp");
 
 template <typename T>
 struct Top2 {
@@ -229,6 +284,11 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool full) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(dst), "l"(src), "r"(full ? 16 : 0) : "memory");
+}
+// 4 bytes global -> shared; full == false writes 4 zero bytes instead
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(full ? 4 : 0) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -507,92 +567,212 @@ int i8_smem_bytes(int D) {
   return KB * A_BLOCK + STAGES * B_STAGE + 2 * STAGES * BN * (int)sizeof(int) + 1024;
 }
 
-// Float32 on the CUDA cores over the same list: grid (row block of 64,
-// pair); 256 threads hold a 64x64 tile as 4x4 per thread, rows ty + 16 r
-// and tile columns tx + 16 c; A and B stream through shared memory in
-// chunks of 32 floats, padded to 33 so that neither the stores nor the
-// per-thread reads conflict on banks.
-__global__ void __launch_bounds__(F_NT)
+// Float32 on the CUDA cores over the same list. Grid: one CTA per (pair,
+// block of F_ROWS rows, segment), segment fastest; a segment is a share of
+// the pair's listed tiles, [seg * tiles / segs, (seg + 1) * tiles / segs).
+// Each writes the top-2 of its rows over its columns to out[((pair * N +
+// row) * segs + seg) * 2 ...]; with segs > 1, knn2_f32_merge_kernel merges
+// them. vec: D % 4 == 0 and A, B on 16-byte boundaries, so the copies move
+// 16 bytes; otherwise 4. Dynamic shared memory: F_SMEM bytes.
+//
+// Thread (ty, tx) holds rows ty + F_RT i (i < F_TR) and tile columns
+// tx + F_CT j (j < F_TC). A unit (tile, chunk of F_KC floats of depth) is
+// one stage of the ring: A's rows and the tile's listed rows of B, row-major
+// with a stride of F_LD floats. For every 4 floats of depth a thread reads
+// its F_TR rows' and F_TC columns' float4s (16-byte loads, conflict-free: 8
+// consecutive rows start on 8 different bank quads) and issues 64 x 4 FFMA.
+// Barrier u waits for unit u's copies, then copies unit u + F_STAGES - 1
+// into the stage of unit u - 1, whose products and fold are done.
+__global__ void __launch_bounds__(F_NT, F_MINB)
 knn2_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
                 const float* __restrict__ bnorm, const int* __restrict__ list,
                 const int* __restrict__ count, int N, int M, int Mp, int D,
+                int row_blocks, int segs, int vec,
                 int* __restrict__ idx_out, float* __restrict__ val_out) {
-  __shared__ float As[F_BN][F_KW + 1];
-  __shared__ float Bs[F_BM][F_KW + 1];
-  __shared__ int cols[F_BM];
-
-  const int pair = blockIdx.y;
-  const int row0 = blockIdx.x * F_BN;
+  extern __shared__ float4 fsm4[];
+  float* fsm = reinterpret_cast<float*>(fsm4);
+  const int seg = blockIdx.x % segs;
+  const int blk = blockIdx.x / segs;
+  const int pair = blk / row_blocks;
+  const int row0 = (blk - pair * row_blocks) * F_ROWS;
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
+  const int tx = tid % F_CT, ty = tid / F_CT;
   const float* a = A + (size_t)pair * N * D;
   const float* b = B + (size_t)pair * M * D;
   const float* bn = bnorm + (size_t)pair * M;
   const int* lst = list + (size_t)pair * Mp;
   const int nvalid = count[pair];
+  const int tiles = (nvalid + BN - 1) / BN;
+  const int t0 = (int)((long long)seg * tiles / segs);
+  const int t1 = (int)((long long)(seg + 1) * tiles / segs);
+  const int kch = (D + F_KC - 1) / F_KC;
+  const int units = (t1 - t0) * kch;
 
-  Top2<float> top[4];
+  // This thread copies 4 floats at depth 4 lc of rows lr + F_RPP p of A and
+  // of the tile's listed rows of B. Its list entries for the tile being
+  // copied (cl) and the next (cn) are read a tile ahead.
+  const int lr = tid / F_CPR, lc = tid % F_CPR;
+  int cl[F_PASSES], cn[F_PASSES];
+  auto fetch = [&](int tile, int (&c)[F_PASSES]) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r) { top[r].b = top[r].s = 3.4e38f; top[r].bi = top[r].si = 0; }
-
-  for (int m0 = 0; m0 < nvalid; m0 += F_BM) {
-    if (tid < F_BM) cols[tid] = m0 + tid < nvalid ? lst[m0 + tid] : -1;
-    __syncthreads();
-    float acc[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-
-    for (int k0 = 0; k0 < D; k0 += F_KW) {
-      for (int t = tid; t < F_BN * F_KW; t += F_NT) {
-        const int r = t / F_KW, kk = t % F_KW;
-        const int gr = row0 + r, gk = k0 + kk;
-        As[r][kk] = (gr < N && gk < D) ? a[(size_t)gr * D + gk] : 0.f;
-        const int col = cols[r];
-        Bs[r][kk] = (col >= 0 && gk < D) ? b[(size_t)col * D + gk] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < F_KW; ++kk) {
-        float av[4], bv[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) av[r] = As[ty + 16 * r][kk];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) bv[c] = Bs[tx + 16 * c][kk];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-      }
-      __syncthreads();
+    for (int p = 0; p < F_PASSES; ++p) {
+      const int pos = tile * BN + lr + F_RPP * p;
+      c[p] = pos < Mp ? lst[pos] : 0;
     }
-
-    // this tile's columns, ascending per thread, into the top-2
+  };
+  // units are loaded in order, so cl and cn move on after a tile's last chunk
+  auto load_unit = [&](int u) {
+    const int tt = u / kch, c = u - tt * kch, tile = t0 + tt;
+    float* As = fsm + (u % F_STAGES) * F_STAGE;
+    float* Bs = As + F_ROWS * F_LD;
+    int* cs = reinterpret_cast<int*>(Bs + BN * F_LD);
+    float* ns = reinterpret_cast<float*>(cs + BN);
+    const int k0 = c * F_KC + 4 * lc;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int col = cols[tx + 16 * c];
-      if (col < 0) continue;
-      const float nrm = bn[col];
+    for (int p = 0; p < F_PASSES; ++p) {
+      const int r = lr + F_RPP * p;
+      // rows past N and list positions past the count: zeros
+      const bool ain = row0 + r < N, bin = tile * BN + r < nvalid;
+      const float* as = a + (size_t)(ain ? row0 + r : 0) * D + k0;
+      const float* bs = b + (size_t)cl[p] * D + k0;
+      const uint32_t ad = smem_u32(As + r * F_LD + 4 * lc);
+      const uint32_t bd = smem_u32(Bs + r * F_LD + 4 * lc);
+      if (vec) {
+        const bool kin = k0 < D;
+        cp_async16(ad, ain && kin ? as : A, ain && kin);
+        cp_async16(bd, bin && kin ? bs : B, bin && kin);
+      } else {
 #pragma unroll
-      for (int r = 0; r < 4; ++r) insert(top[r], nrm - 2.f * acc[r][c], col);
+        for (int e = 0; e < 4; ++e) {
+          const bool kin = k0 + e < D;
+          cp_async4(ad + 4 * e, ain && kin ? as + e : A, ain && kin);
+          cp_async4(bd + 4 * e, bin && kin ? bs + e : B, bin && kin);
+        }
+      }
+      if (c == kch - 1 && lc == 0) {   // the tile's columns and their norms
+        cp_async4(smem_u32(cs + r), lst + tile * BN + r, true);
+        cp_async4(smem_u32(ns + r), bn + cl[p], true);
+      }
     }
-    __syncthreads();   // cols is rewritten by the next tile
+    if (c == kch - 1) {
+#pragma unroll
+      for (int p = 0; p < F_PASSES; ++p) cl[p] = cn[p];
+      fetch(tile + 2, cn);
+    }
+  };
+
+  Top2<float> top[F_TR];   // the running top-2 of each of the thread's rows
+#pragma unroll
+  for (int i = 0; i < F_TR; ++i) { top[i].b = top[i].s = 3.4e38f; top[i].bi = top[i].si = 0; }
+
+  if (units > 0) {
+    fetch(t0, cl);
+    fetch(t0 + 1, cn);
+    constexpr int LEAD = F_STAGES - 1;
+#pragma unroll
+    for (int s = 0; s < LEAD; ++s) {
+      if (s < units) load_unit(s);
+      cp_async_commit();
+    }
+    float acc[F_TR][F_TC];
+#pragma unroll
+    for (int i = 0; i < F_TR; ++i)
+#pragma unroll
+      for (int j = 0; j < F_TC; ++j) acc[i][j] = 0.f;
+
+    int c = 0, tile = t0;   // unit u's chunk and tile
+    for (int u = 0; u < units; ++u) {
+      cp_async_wait<LEAD - 1>();
+      __syncthreads();
+      if (u + LEAD < units) load_unit(u + LEAD);
+      cp_async_commit();
+
+      const float* As = fsm + (u % F_STAGES) * F_STAGE;
+      const float* Bs = As + F_ROWS * F_LD;
+      // each distance is one fmaf chain over k ascending from 0
+#pragma unroll
+      for (int k4 = 0; k4 < F_KC / 4; ++k4) {
+        float4 af[F_TR];
+#pragma unroll
+        for (int i = 0; i < F_TR; ++i)
+          af[i] = *reinterpret_cast<const float4*>(As + (ty + F_RT * i) * F_LD + 4 * k4);
+#pragma unroll
+        for (int j = 0; j < F_TC; ++j) {
+          const float4 bf =
+              *reinterpret_cast<const float4*>(Bs + (tx + F_CT * j) * F_LD + 4 * k4);
+#pragma unroll
+          for (int i = 0; i < F_TR; ++i) {
+            float x = acc[i][j];
+            x = fmaf(af[i].x, bf.x, x);
+            x = fmaf(af[i].y, bf.y, x);
+            x = fmaf(af[i].z, bf.z, x);
+            x = fmaf(af[i].w, bf.w, x);
+            acc[i][j] = x;
+          }
+        }
+      }
+
+      if (++c == kch) {   // the tile's last chunk: its columns, ascending per thread
+        const int* cs = reinterpret_cast<const int*>(Bs + BN * F_LD);
+        const float* ns = reinterpret_cast<const float*>(cs + BN);
+        int col[F_TC];
+        float nrm[F_TC];
+#pragma unroll
+        for (int j = 0; j < F_TC; ++j) {
+          const int p = tx + F_CT * j;
+          col[j] = tile * BN + p < nvalid ? cs[p] : -1;
+          nrm[j] = ns[p];
+        }
+#pragma unroll
+        for (int i = 0; i < F_TR; ++i)
+#pragma unroll
+          for (int j = 0; j < F_TC; ++j) {
+            if (col[j] >= 0) insert(top[i], nrm[j] - 2.f * acc[i][j], col[j]);
+            acc[i][j] = 0.f;
+          }
+        c = 0;
+        ++tile;
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
   }
 
-  // merge across the 16 threads (tx) that share each row
+  // merge across the F_CT lanes (tx) that share each row
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const Top2<float> t = merge_lanes(top[r], 1, 8);
-    const int row = row0 + ty + 16 * r;
+  for (int i = 0; i < F_TR; ++i) {
+    const Top2<float> t = merge_lanes(top[i], 1, F_CT / 2);
+    const int row = row0 + ty + F_RT * i;
     if (tx == 0 && row < N) {
-      const size_t o = ((size_t)pair * N + row) * 2;
+      const size_t o = (((size_t)pair * N + row) * segs + seg) * 2;
       idx_out[o] = t.bi;
       idx_out[o + 1] = t.si;
       val_out[o] = t.b;
       val_out[o + 1] = t.s;
     }
   }
+}
+
+// rows: B x N; each row's segs partial top-2s, in segment order, into one
+// by (value, column): exact, so the answer does not depend on the split.
+__global__ void __launch_bounds__(256)
+knn2_f32_merge_kernel(const int* __restrict__ pidx, const float* __restrict__ pval,
+                      long long rows, int segs, int* __restrict__ idx_out,
+                      float* __restrict__ val_out) {
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  const size_t o = (size_t)r * segs * 2;
+  Top2<float> t;
+  t.b = pval[o]; t.s = pval[o + 1]; t.bi = pidx[o]; t.si = pidx[o + 1];
+  for (int s = 1; s < segs; ++s) {
+    Top2<float> y;
+    y.b = pval[o + 2 * s]; y.s = pval[o + 2 * s + 1];
+    y.bi = pidx[o + 2 * s]; y.si = pidx[o + 2 * s + 1];
+    t = merge(t, y);
+  }
+  idx_out[2 * r] = t.bi;
+  idx_out[2 * r + 1] = t.si;
+  val_out[2 * r] = t.b;
+  val_out[2 * r + 1] = t.s;
 }
 
 // Scratch layout, in int32: cols (B x Mp), keys (B x Mp), count (B),
@@ -627,6 +807,53 @@ int i8_main(const void* a, const void* b, const int* w, int B, int N, int M,
       (const int8_t*)a, (const int8_t*)b, w, w + B * Mp, w + 2 * B * Mp,
       w + 2 * B * Mp + B, N, M, (int)Mp, row_blocks, (int*)idx, (int*)val);
   return (int)cudaGetLastError();
+}
+
+// CTAs of the float32 kernel the current device holds at once (its SMs
+// times the CTAs a SM fits), or a negative CUDA error. Cached per device;
+// the first call also sets the kernel's shared-memory attributes.
+int f32_slots() {
+  static int cached[64] = {0};
+  int dev = 0;
+  cudaError_t ce = cudaGetDevice(&dev);
+  if (ce != cudaSuccess) return -(int)ce;
+  if (dev < 64 && cached[dev] > 0) return cached[dev];
+  int sms = 0, per_sm = 0;
+  ce = cudaFuncSetAttribute(knn2_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            F_SMEM);
+  if (ce == cudaSuccess)
+    ce = cudaFuncSetAttribute(knn2_f32_kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+  if (ce == cudaSuccess)
+    ce = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (ce == cudaSuccess)
+    ce = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, knn2_f32_kernel, F_NT,
+                                                       F_SMEM);
+  if (ce != cudaSuccess) {
+    cudaGetLastError();   // not left behind for the next launch to report
+    return -(int)ce;
+  }
+  if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
+  const int slots = sms * per_sm;
+  if (dev < 64) cached[dev] = slots;
+  return slots;
+}
+
+// Segments each (pair, row block)'s column list is split into: the fewest
+// that fill the device's CTA slots to within 2% of the best share of the
+// last wave, at most one a possible tile.
+int f32_segments(int B, int N, int M, int slots) {
+  const long long ctas = (long long)B * ((N + F_ROWS - 1) / F_ROWS);
+  const int tiles = (M + BN - 1) / BN;
+  int best = 1;
+  double best_fill = 0.0;
+  for (int s = 1; s <= tiles && s <= F_MAX_SEGS; ++s) {
+    const long long n = ctas * s;
+    const double fill = (double)n / (double)(((n + slots - 1) / slots) * slots);
+    if (fill > best_fill + 0.02) { best = s; best_fill = fill; }
+  }
+  return best;
 }
 
 }  // namespace
@@ -666,19 +893,44 @@ extern "C" int knn2_i8_launch(const void* a, const void* b, const void* bnorm,
   }
 }
 
-// As knn2_i8_launch with float32 a, b (any D), bnorm and val.
+// int32 scratch that knn2_f32_launch needs for B pairs of N rows and M
+// columns: the list, and with more than one segment the partial top-2s; a
+// negative CUDA error if the device cannot be queried.
+extern "C" long long knn2_f32_work_ints(int B, int N, int M) {
+  const int slots = f32_slots();
+  if (slots < 0) return slots;
+  const int segs = f32_segments(B, N, M, slots);
+  return knn2_work_ints(B, M) + (segs > 1 ? 4LL * B * N * segs : 0);
+}
+
+// As knn2_i8_launch with float32 a, b (any D, any 4-byte alignment), bnorm
+// and val; work: knn2_f32_work_ints(B, N, M) int32 of scratch. Enqueues the
+// listing kernel, the main kernel and, with more than one segment, the merge.
 extern "C" int knn2_f32_launch(const void* a, const void* b, const void* bnorm,
                                const void* mask2, int B, int N, int M, int D,
                                void* work, void* idx, void* val, void* stream) {
   if (D <= 0) return (int)cudaErrorInvalidValue;
   if (B <= 0 || N <= 0) return 0;
+  const int slots = f32_slots();
+  if (slots < 0) return -slots;
+  const int segs = f32_segments(B, N, M, slots);
+  const int row_blocks = (N + F_ROWS - 1) / F_ROWS;
+  if ((long long)row_blocks * B * segs > INT_MAX) return (int)cudaErrorInvalidConfiguration;
   const cudaStream_t st = (cudaStream_t)stream;
-  int e = list_columns(mask2, nullptr, B, M, D, (int*)work, st);
+  int* w = (int*)work;
+  int e = list_columns(mask2, nullptr, B, M, D, w, st);
   if (e != 0) return e;
-  dim3 grid((N + F_BN - 1) / F_BN, B);
-  knn2_f32_kernel<<<grid, F_NT, 0, st>>>(
-      (const float*)a, (const float*)b, (const float*)bnorm, (const int*)work,
-      (const int*)work + 2 * B * (size_t)list_stride(M), N, M, list_stride(M), D,
-      (int*)idx, (float*)val);
+  const size_t Mp = list_stride(M);
+  int* pidx = segs > 1 ? w + 2 * B * Mp + 2 * B : (int*)idx;
+  float* pval = segs > 1 ? (float*)(pidx + 2LL * B * N * segs) : (float*)val;
+  const int vec = D % 4 == 0 && (uintptr_t)a % 16 == 0 && (uintptr_t)b % 16 == 0;
+  knn2_f32_kernel<<<row_blocks * B * segs, F_NT, F_SMEM, st>>>(
+      (const float*)a, (const float*)b, (const float*)bnorm, w, w + 2 * B * Mp, N, M,
+      (int)Mp, D, row_blocks, segs, vec, pidx, pval);
+  e = (int)cudaGetLastError();
+  if (e != 0 || segs == 1) return e;
+  const long long rows = (long long)B * N;
+  knn2_f32_merge_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, st>>>(
+      pidx, pval, rows, segs, (int*)idx, (float*)val);
   return (int)cudaGetLastError();
 }

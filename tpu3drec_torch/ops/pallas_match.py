@@ -19,6 +19,8 @@ float32 (BIG = 3.4e38).
 to the hand-written kernel `csrc/knn2.cu` (or raise). Its int8 path runs
 on the tensor cores, a 128-byte row of depth at a time: `pad_depth` pads
 D with zero columns to a multiple of 128, which changes no dot product.
+Its float32 path runs on the CUDA cores and takes any D and any 4-byte
+alignment as it is.
 """
 
 from __future__ import annotations
@@ -149,6 +151,8 @@ def _library():
             + [ctypes.c_void_p] * 4
         fn.restype = ctypes.c_int
     lib.knn2_work_ints.restype = ctypes.c_longlong
+    lib.knn2_f32_work_ints.argtypes = [ctypes.c_int] * 3
+    lib.knn2_f32_work_ints.restype = ctypes.c_longlong
     return lib
 
 
@@ -160,12 +164,17 @@ def _launch(a, b, bnorm, mask2):
     M = b.shape[1]
     idx = torch.empty(B, N, 2, device=a.device, dtype=torch.int32)
     val = torch.empty(B, N, 2, device=a.device, dtype=bnorm.dtype)
-    # each pair's list of valid columns, built by the C call
-    work = torch.empty(lib.knn2_work_ints(B, M), device=a.device,
-                       dtype=torch.int32)
 
     # the C call launches on the current device
     with torch.cuda.device(a.device):
+        # each pair's list of valid columns, built by the C call; float32
+        # also keeps the partial top-2s of its column segments there
+        n_work = lib.knn2_work_ints(B, M) if a.dtype == torch.int8 \
+            else lib.knn2_f32_work_ints(B, N, M)
+        if n_work < 0:
+            raise RuntimeError(f"knn2: device query failed: CUDA error "
+                               f"{-n_work}")
+        work = torch.empty(n_work, device=a.device, dtype=torch.int32)
         stream = torch.cuda.current_stream().cuda_stream
         # a bool tensor is one byte of 0 or 1 per element, as the kernel reads
         err = fn(a.data_ptr(), b.data_ptr(), bnorm.data_ptr(),
