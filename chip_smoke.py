@@ -55,9 +55,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
      same draws;
   6. the incremental SfM pipeline (`SfMPipeline(SfMConfig()).reconstruct`)
      at bench.py:bench_sfm's folder: 50 views of 640x480 around 15,000
-     points (the port's `make_sfm_scene`). One cold run, with the kernels'
+     points (the port's `make_sfm_scene`). One run, with the kernels'
      launch counts read around it (0: no TPU kernel lies on this path),
-     then one steady run give views/s; every view must register, the
+     gives views/s; every view must register, the
      final mean reprojection
      stay under 1 px and every consecutive relative rotation within 1 deg
      of the truth; the per-phase split of the steady run; one profiled run
@@ -82,7 +82,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
      match counts within max(2, 2%), the same best method where the CPU's
      scores differ by more than 0.02), the card's SfM again on the
      steady run's matches (the same views, points and poses, bit for
-     bit), the CPU's SfM on the card's matches, the dense stage on a 7-view cut of the card's registered
+     bit), the CPU's SfM on the card's matches, the dense stage on a 4-view cut of the card's registered
      views (card and CPU), the views a 4-view cut registers on both, and
      `knn2` on one batch's ORB operands bit for bit against its plain
      version, twice, timed beside its bound;
@@ -177,9 +177,30 @@ Phases, each of which raises (and so exits non-zero) on failure:
      and ORB, 2 runs) with no method error and `knn2` launched by its
      throughput task; `trace_to` leaving a trace and
      `device_memory_stats` reporting the card;
-  12. one JSON line with every kernel's launches (by path), error, time,
+  12. the parallel paths (`tpu3drec_torch.parallel`) in two worlds
+     started together from this process with the spawn method (rank,
+     world size and local rank in the environment, as torchrun sets
+     them; each rank joins through `init_multihost`; the second world's
+     work waits until the first has ended). A world of 1 rank on NCCL at full
+     width: `make_batched_pair_step` on a (1, 1) mesh over phase 3's 96
+     pairs (`tp_knn2`, metric "l2"), `sharded_bundle_adjust` on phase 5's
+     problem, `sharded_pairwise_stereo` on phase 4's views and
+     `match_folder_sharded` on phase 7's folder, each bit for bit against
+     the unsharded card path with the same inputs and draws, with the
+     launches of `ori_desc`, `knn2` and `sgm` read around each, pairs/s,
+     BA ms/LM-iter and MP-depth/s printed beside phases 3, 5 and 4, and
+     `knn2`'s float32 kernel at the tp shard's operands against its plain
+     version. A world of 2 ranks on gloo, both on cuda:0, at the
+     multichip dryrun's sizes: the pair step on a (1, 2) mesh,
+     `ring_knn2`, sharded BA on the dryrun's problem, the sharded stereo
+     and the dense pipeline's sharded branch on 3 neighbours (one chunk
+     padded), the SfM pipeline's sharded global BA (`"sharded": 2`) and
+     `global_pair_stats`, each against its single-rank counterpart at the
+     CPU tests' bars, the ranks' replicated outputs bit-identical. NCCL
+     refuses two ranks on one card, so scaling across cards is not shown;
+  13. one JSON line with every kernel's launches (by path), error, time,
      bound and the plain and library yardsticks; each phase's seconds;
-  13. last line: {"ok": true, "device": {...}}.
+  14. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or without the package beside it, it fails before printing
 any result. It imports nothing of JAX.
@@ -289,7 +310,7 @@ FOLDER_CLOUD_BAR = 45_000
 FOLDER_VALID_BAR = 0.6
 FOLDER_DENSE_VALID_ABS = 0.001
 FOLDER_DENSE_CLOUD_RTOL = 0.01
-FOLDER_DENSE_CUT = 7          # views of the card-vs-CPU dense comparison
+FOLDER_DENSE_CUT = 4          # views of the card-vs-CPU dense comparison
 FOLDER_METRIC_BY_DEPTH = {128: "l2_int8", 256: "hamming_pm1"}
 
 # phase 8: the same folder through the CLI `auto --preset accurate
@@ -670,6 +691,7 @@ def device_ms_by_kernel(torch, fn):
     """Device ms of each kernel and memset, by name, in one profiled call
     of `fn` after a warm-up call. The profiler lists the kernels that the
     ctypes libraries launch (no host op owns them)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -677,9 +699,9 @@ def device_ms_by_kernel(torch, fn):
         fn()
         torch.cuda.synchronize()
     out = {}
-    for ev in prof.key_averages():
-        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            out[ev.key] = out.get(ev.key, 0.0) + _device_us(ev, True) / 1e3
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA and not ev.is_user_annotation():
+            out[ev.name()] = out.get(ev.name(), 0.0) + ev.duration_ns() / 1e6
     return out
 
 
@@ -1112,19 +1134,20 @@ def check_knn2(torch, desc, mask, B):
                 full_library_bf16_ms=stress["library_bf16_ms"], **f32)
 
 
-def _device_us(ev, self_only):
-    name = "self_device_time_total" if self_only else "device_time_total"
-    us = getattr(ev, name, None)
-    if us is None:
-        us = getattr(ev, name.replace("device", "cuda"), 0)
-    return us
-
-
 def profile_call(torch, fn, prefix, top=12):
     """One profiled call (torch.profiler): its wall time, the summed device
     time of its kernels and so the device's busy share of that same call,
     the stage ranges whose names start with `prefix`, and device time by
-    kernel."""
+    kernel.
+
+    Read from the profiler's raw events (`key_averages()` builds the whole
+    event tree first: minutes on a call of a few 100k events). A host
+    range's device time is the time of the device ops launched on its
+    thread while it was open, found by the launch's correlation id, so
+    the kernels launched through ctypes count too; a device-side range
+    (its span there) has no host time."""
+    import bisect
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1133,30 +1156,54 @@ def profile_call(torch, fn, prefix, top=12):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
-    rows, stages = [], []
-    for ev in prof.key_averages():
-        on_device = str(getattr(ev, "device_type", "")).endswith("CUDA")
-        if ev.key.startswith(prefix):
-            # a host range: host span, and the device time of the kernels
-            # launched inside it; a device-side range: its span there
-            stages.append((ev.key, "device span" if on_device else "host range",
-                           ev.cpu_time_total / 1e3,
-                           _device_us(ev, on_device) / 1e3))
-            continue
-        if not on_device:
-            continue        # host-side ops; their kernels are listed apart
-        us = _device_us(ev, True)
-        if us > 0:
-            rows.append((us / 1e3, ev.count, ev.key))
-    if not rows:
+    launch, device, ranges, kernels = {}, [], [], {}
+    for ev in prof.profiler.kineto_results.events():
+        name, on_device = ev.name(), ev.device_type() == DeviceType.CUDA
+        if name.startswith(prefix):
+            ranges.append((name, on_device, ev.start_thread_id(),
+                           ev.start_ns(), ev.duration_ns()))
+        elif on_device and not ev.is_user_annotation():
+            ms, n = kernels.get(name, (0.0, 0))
+            kernels[name] = (ms + ev.duration_ns() / 1e6, n + 1)
+            device.append((ev.correlation_id(), ev.duration_ns()))
+        elif not on_device and name.startswith("cu"):
+            # a runtime or driver call (cudaLaunchKernel, cuLaunchKernel,
+            # cudaMemcpyAsync, ...): its correlation id names its device op
+            launch[ev.correlation_id()] = (ev.start_thread_id(), ev.start_ns())
+    if not kernels:
         print("profiler: no device time recorded")
         return
-    rows.sort(reverse=True)
+    # per host thread: the device ops' launch times, sorted, and the
+    # running sum of their device time
+    by_thread = {}
+    for corr, ns in device:
+        if corr in launch:
+            tid, at = launch[corr]
+            by_thread.setdefault(tid, []).append((at, ns))
+    cum = {}
+    for tid, rows in by_thread.items():
+        rows.sort()
+        cum[tid] = ([at for at, _ in rows],
+                    np.concatenate([[0], np.cumsum([ns for _, ns in rows])]))
+    stages = {}
+    for name, on_device, tid, start, ns in ranges:
+        if on_device:
+            host_ms, dev_ms = 0.0, ns / 1e6
+        else:
+            at, c = cum.get(tid, ([], np.zeros(1)))
+            lo, hi = (bisect.bisect_left(at, start),
+                      bisect.bisect_right(at, start + ns))
+            host_ms, dev_ms = ns / 1e6, float(c[hi] - c[lo]) / 1e6
+        key = (name, "device span" if on_device else "host range")
+        h, d = stages.get(key, (0.0, 0.0))
+        stages[key] = (h + host_ms, d + dev_ms)
+    rows = sorted(((ms, n, name) for name, (ms, n) in kernels.items()),
+                  reverse=True)
     busy = sum(r[0] for r in rows)
     print(f"profiled call: {wall:.1f} ms wall, {busy:.1f} ms summed kernel "
           f"time ({100 * busy / wall:.1f}% busy, {wall - busy:.1f} ms idle, "
           f"this call under the profiler)")
-    for key, kind, host_ms, dev_ms in sorted(stages):
+    for (key, kind), (host_ms, dev_ms) in sorted(stages.items()):
         print(f"  stage {key} ({kind}): host {host_ms:.3f} ms, device "
               f"{dev_ms:.3f} ms")
     print("top device time by kernel:")
@@ -1317,6 +1364,7 @@ def run_dense(torch, kind, dev):
         fail("the dense path never launched the sgm kernel")
     mp = W * H * (len(DENSE_BX) - 1) / 1e6
     rates = sorted(mp / r["stereo"] for r in runs)
+    fields["mp_depth_s"] = float(np.median(rates))
     print(f"dense stereo stage: {float(np.median(rates))} MP-depth/s "
           f"(median of {DENSE_REPS}, spread {rates[0]} .. {rates[-1]}; "
           f"{len(DENSE_BX) - 1} pairs of {W}x{H}, {NUM_DISPARITIES} "
@@ -1735,6 +1783,7 @@ def run_sfm(torch, card, dev):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     profile_call(torch, lambda: two_view_chain(torch, tv, p1, p2, K, "5point",
                                                generator=gen), "sfm.", top=6)
+    return ba_ms
 
 
 def small_sfm_scene(n_views=5, n_pts=250, noise=0.4, seed=0):
@@ -1843,23 +1892,22 @@ def run_pipeline(torch, card, dev):
           f"lies on this path: the reference computes it in plain XLA)")
     if any(launches.values()):
         fail("the SfM pipeline launched a kernel of another path")
-    print(f"SfM pipeline cold run ({PIPE_VIEWS} views, {PIPE_POINTS} points): "
-          f"{recon.num_cameras / cold:.4f} views/s ({cold:.2f} s)")
-    pipe, recon, steady = sfm_pipeline_run(torch, md, info, dev)
+    # one run (two before phase 12 came): phase 5's solves have warmed
+    # the libraries it calls
     errs = reprojection_errors(recon)
     mre = float(np.mean(errs)) if len(errs) else np.inf
     rot = consecutive_rotation_errors(recon, [R for R, _ in gt["views"]],
                                       gt["names"])
     init = next(h for h in pipe.history if h["phase"] == "init")
-    print(f"SfM pipeline steady: {recon.num_cameras / steady:.4f} views/s "
-          f"(one run, {steady:.2f} s); cold "
-          f"{recon.num_cameras / cold:.4f} views/s; on {card}")
+    print(f"SfM pipeline ({PIPE_VIEWS} views, {PIPE_POINTS} points, one run, "
+          f"the first in the process): {recon.num_cameras / cold:.4f} views/s "
+          f"({cold:.2f} s); on {card}")
     print(f"SfM pipeline result: {recon.num_cameras} cameras, "
           f"{recon.num_points} points, {recon.num_observations} observations, "
           f"final mean reprojection {mre:.4f} px, consecutive relative "
           f"rotations within {rot.max() if len(rot) else np.inf:.4f} deg of "
           f"the truth, init pair {tuple(init['pair'])}")
-    print(json.dumps({"metric": "sfm per-phase profile (last steady run)",
+    print(json.dumps({"metric": "sfm per-phase profile (the run)",
                       **phase_split(pipe.history)}))
     if recon.num_cameras != PIPE_VIEWS:
         fail(f"the SfM pipeline registered {recon.num_cameras} of "
@@ -2098,7 +2146,7 @@ def run_folder(torch, card, dev, tmp, names, Rs):
     `tmp`/imgs (`names`, the renderer's rotations `Rs`); its
     kernels' launches, bars, the card against the CPU plain path (the
     first batch's matching, the SfM stage on the card's own matches, the
-    dense stage on a 7-view cut of the card's registered views, a 4-view
+    dense stage on a 4-view cut of the card's registered views, a 4-view
     cut of the chain), and
     `ori_desc` and `knn2` (both metrics) on the first batch's operands
     against their plain versions."""
@@ -4068,6 +4116,606 @@ def run_user_surface(torch, card, dev, tmp, pairs, Hgt):
                 ori_desc=serve["ori_desc"], knn2=serve["knn2"])
 
 
+# ---------------------------------------------------------------------
+# phase 12: the parallel paths on torch.distributed. The machine has one
+# card and NCCL refuses two ranks on one card, so a world of 1 rank runs
+# on NCCL at full width and a world of 2 ranks on gloo, both on cuda:0,
+# at the multichip dryrun's sizes (__graft_entry__.py:80-190): scaling
+# across cards is not shown.
+PAR_TIMEOUT_S = 300           # a world's ranks must all end within this
+PAR_REPS = 2                  # timed sharded calls at full width
+PAR_PAIRS, PAR_SIZE = 4, (96, 96)         # the dryrun's pair step
+PAR_FEATURES, PAR_HYPOTHESES = 128, 64
+PAR_STEREO = (96, 128)        # tests/test_parallel.py's stereo scene
+PAR_STEREO_F = 150.0
+PAR_STEREO_BX = (-0.1, 0.1, -0.2)         # 3 neighbours: one padded chunk
+PAR_STEREO_DISPARITIES = 32
+PAR_KNN = (64, 128, 32)       # tests/test_parallel.py's ring 2-NN input
+PAR_BA_CFG = dict(max_iters=3, schur_solver="cg", cg_iters=24, ftol=0.0)
+PAR_BA_TOL = 5e-3             # tests/test_torch_ba_sharded.py's bar
+PAR_KNN_TOL = 1e-4            # tests/test_torch_parallel.py's bar
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def sift_detect_fn(max_features):
+    """The pair step's detect_fn: the port's SIFT on a batch, as (xy,
+    response, desc, mask)."""
+    from tpu3drec_torch.ops.sift import detect_and_compute
+
+    def detect(imgs):
+        xy, resp, _, _, desc, mask = detect_and_compute(imgs, max_features)
+        return xy, resp, desc, mask
+    return detect
+
+
+def pair_stages_l2(detect, img1, img2, u, ratio=0.75):
+    """The sharded pair step's stages on one rank, straight through
+    `knn2` with metric "l2": its single-rank counterpart."""
+    import torch
+    from tpu3drec_torch.ops.geometry import find_homography
+    from tpu3drec_torch.ops.match import knn2
+    B = img1.shape[0]
+    xy, _, desc, mask = detect(torch.cat([img1, img2]))
+    idx, dist = knn2(desc[:B], desc[B:], mask[:B], mask[B:], metric="l2")
+    ok = (dist[..., 0] < ratio * torch.clamp(dist[..., 1], min=1e-12)) \
+        & mask[:B]
+    p2 = xy[B:].gather(1, idx[..., :1].long().expand(-1, -1, 2))
+    rr = find_homography(xy[:B], p2, mask=ok, num_hypotheses=u.shape[1],
+                         refit=False, u=u)
+    return {"num_matches": ok.sum(-1, dtype=torch.int32),
+            "num_inliers": rr.num_inliers, "inlier_ratio": rr.inlier_ratio,
+            "success": rr.success}
+
+
+def pair_uniforms(torch, B, K, dev):
+    """(B, K, 4) RANSAC uniforms from one seeded generator: a sharded run
+    sees the draws of a single-rank one."""
+    from tpu3drec_torch.ops.ransac import draw_uniform
+    return draw_uniform(B * K, 4, torch.Generator().manual_seed(SEED)) \
+        .reshape(B, K, 4).to(dev)
+
+
+def to_host(x):
+    """Tensors (in dicts, lists and tuples) as numpy arrays."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    if isinstance(x, dict):
+        return {k: to_host(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_host(v) for v in x)
+    return x
+
+
+def same_values(a, b):
+    """Equal values, dtype aside (numpy arrays or nests of them)."""
+    a, b = to_host(a), to_host(b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_values(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_values(x, y) for x, y in zip(a, b))
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def raw_match_counts(pipe):
+    """Wrap `pipe`'s batched engine to keep each pair's raw match count by
+    method; returns the dict it fills."""
+    counts = {}
+    engine = pipe._match_pairs_batched
+
+    def spied(images, pairs):
+        res = engine(images, pairs)
+        for pair, r in res.items():
+            counts[pair] = {m: mr.num_raw_matches for m, mr in r.results.items()}
+        return res
+    pipe._match_pairs_batched = spied
+    return counts
+
+
+def stereo_neighbours(sparse, images, ref):
+    """(img, K2, R_rel, t_rel, None) per neighbour of `ref`, as the dense
+    pipeline hands `sharded_pairwise_stereo` its pairs, and K_ref."""
+    cams = sparse["camera_poses"]
+    arr = lambda n, k: np.asarray(cams[n][k], np.float64)
+    R_ref, t_ref = arr(ref, "rotation"), arr(ref, "translation")
+    out = []
+    for n in cams:
+        if n == ref:
+            continue
+        R_rel = arr(n, "rotation") @ R_ref.T
+        t_rel = arr(n, "translation") - R_rel @ t_ref
+        out.append((np.asarray(images[n], np.float32),
+                    arr(n, "camera_matrix").astype(np.float32),
+                    R_rel.astype(np.float32), t_rel.astype(np.float32), None))
+    return out, arr(ref, "camera_matrix").astype(np.float32)
+
+
+def small_stereo_folder():
+    """tests/test_parallel.py's sharded-stereo scene as a dense-stage
+    folder: a photo and 3 neighbours rolled by int(50 bx) px, f = 150
+    (a plane at depth 3)."""
+    h, w = PAR_STEREO
+    K = [[PAR_STEREO_F, 0, w / 2], [0, PAR_STEREO_F, h / 2], [0, 0, 1]]
+    base = synthetic_photo(h, w, SEED + 40)
+    images, cams = {"v0.png": base}, {}
+    for i, bx in enumerate((0.0,) + PAR_STEREO_BX):
+        name = f"v{i}.png"
+        images[name] = np.roll(base, int(bx * 50), axis=1)
+        cams[name] = {"camera_matrix": K, "rotation": np.eye(3).tolist(),
+                      "translation": [bx, 0.0, 0.0]}
+    return {"camera_poses": cams, "points_3d": [[0.0, 0.0, 3.0]]}, images
+
+
+def check_stereo_per_pair(torch, outs, neigh, img_ref, K_ref, ndisp, dev,
+                          label):
+    """Each sharded pair bit-equal to `stereo_depth_pair` of that pair."""
+    from tpu3drec_torch.ops.stereo import stereo_depth_pair
+    ref = torch.as_tensor(img_ref, dtype=torch.float32, device=dev)
+    if len(outs) != len(neigh):
+        fail(f"{label}: {len(outs)} results for {len(neigh)} pairs")
+    for j, ((img2, K2, R, t, _), got) in enumerate(zip(neigh, outs)):
+        one = stereo_depth_pair(ref, torch.as_tensor(img2, device=dev),
+                                K_ref, K2, R, t, num_disparities=ndisp)
+        for k in ("depth", "disparity", "valid", "baseline"):
+            if not same_values(got[k], one[k]):
+                fail(f"{label}: pair {j} {k} differs from stereo_depth_pair")
+
+
+def laps():
+    """lap(name) records the host seconds since the previous lap under
+    name in the dict it returns beside it."""
+    secs, last = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        secs[name] = round(now - last[0], 2)
+        last[0] = now
+    return secs, lap
+
+
+def rank_full_width(torch, dev, tmp):
+    """World of 1 rank on NCCL: the pair step at phase 3's size, global
+    BA at phase 5's, stereo at phase 4's and the folder at phase 7's,
+    each bit for bit against the unsharded card path with the same
+    inputs and draws, with the kernels' launches read around each."""
+    import tpu3drec_torch as tv
+    from tpu3drec_torch.io.images import (
+        create_pairs_from_metadata, scan_folder_metadata,
+    )
+    from tpu3drec_torch.ops import match as mt
+    from tpu3drec_torch.ops import pallas_match as pm
+    from tpu3drec_torch.ops import pallas_sample as ps
+    from tpu3drec_torch.ops import pallas_sgm as psg
+    from tpu3drec_torch.parallel.ba import sharded_bundle_adjust
+    from tpu3drec_torch.parallel.dense import sharded_pairwise_stereo
+    from tpu3drec_torch.parallel.mesh import make_mesh
+    from tpu3drec_torch.parallel.multihost import match_folder_sharded
+    from tpu3drec_torch.parallel.pairs import make_batched_pair_step
+    out = {"launches": {}}
+    out["seconds"], lap = laps()
+    mesh = make_mesh(shape=(1, 1))
+    sync = torch.cuda.synchronize
+
+    # (a) the pair step: 96 pairs of 480x640, 2,048 keypoints
+    pairs = torch.load(os.path.join(tmp, "pairs.pt"))
+    img1, img2 = pairs["img1"].to(dev), pairs["img2"].to(dev)
+    B = img1.shape[0]
+    u = pair_uniforms(torch, B, NUM_HYPOTHESES, dev)
+    detect = sift_detect_fn(MAX_FEATURES)
+    step = make_batched_pair_step(mesh, detect, num_hypotheses=NUM_HYPOTHESES)
+    reset_counts(pm, ps, psg)
+    got = step(img1, img2, u)
+    sync()
+    n = kernel_counts(pm, ps, psg)
+    out["launches"]["sharded_pair_step"] = n
+    if not (n["ori_desc"] and n["knn2"]):
+        fail(f"the sharded pair step did not launch ori_desc and knn2: {n}")
+    t0 = time.perf_counter()
+    for _ in range(PAR_REPS):
+        step(img1, img2, u)
+    sync()
+    out["pairs_per_s"] = B * PAR_REPS / (time.perf_counter() - t0)
+    seen = []
+    real = mt.knn2_raw
+
+    def keep(*ops):
+        seen.append(ops)
+        return real(*ops)
+    mt.knn2_raw = keep
+    try:
+        ref = pair_stages_l2(detect, img1, img2, u)
+    finally:
+        mt.knn2_raw = real
+    if not same_values(got["total_matches"],
+                       torch.full((B,), int(got["num_matches"].sum()))):
+        fail("the sharded pair step's total_matches is not the sum")
+    del got["total_matches"]
+    if not same_values(got, ref):
+        fail("the sharded pair step (world 1) differs from the unsharded "
+             "stages through knn2 'l2'")
+    out["pair_stats"] = {k: float(v.float().mean()) for k, v in ref.items()}
+    del img1, img2, pairs
+    out["tp_knn2"] = knn2_f32_check(
+        torch, pm, seen[0], "the sharded pair step's tp_knn2 shard (world 1)")
+    del seen
+    lap("pair_step")
+
+    # (b) global BA: 50 cams / 100k points / 500k observations, Schur-CG
+    cfg = tv.BAConfig(max_iters=10, schur_solver="cg")
+    prob = tv.BAProblem.from_numpy(**bench_ba_problem(SEED), device=dev)
+    one = tv.bundle_adjust(prob, cfg)
+    sync()
+    t0 = time.perf_counter()
+    res = sharded_bundle_adjust(prob, mesh, cfg)
+    sync()
+    dt = time.perf_counter() - t0
+    out["ba_ms_per_iter"] = dt / max(int(res.iterations), 1) * 1e3
+    out["ba_stats"] = res.stats.cpu().numpy()
+    for k in ("cam_params", "points", "stats"):
+        if not torch.equal(getattr(res, k), getattr(one, k)):
+            fail(f"sharded global BA (world 1): {k} differs from "
+                 f"bundle_adjust(cg)")
+    del prob, one, res
+    lap("ba")
+
+    # (c) stereo: phase 4's folder, 2 pairs of 480x640, 64 disparities
+    sparse, images, ref_name = dense_folder(H, W, SEED + 7)
+    neigh, K_ref = stereo_neighbours(sparse, images, ref_name)
+    run = lambda: sharded_pairwise_stereo(mesh, images[ref_name], neigh,
+                                          K_ref, NUM_DISPARITIES, device=dev)
+    reset_counts(pm, ps, psg)
+    outs = run()
+    sync()
+    out["launches"]["sharded_stereo"] = kernel_counts(pm, ps, psg)
+    if not out["launches"]["sharded_stereo"]["sgm"]:
+        fail("the sharded stereo never launched the sgm kernel")
+    t0 = time.perf_counter()
+    run()
+    sync()
+    out["mp_depth_per_s"] = H * W * len(neigh) / (time.perf_counter() - t0) / 1e6
+    check_stereo_per_pair(torch, outs, neigh, images[ref_name], K_ref,
+                          NUM_DISPARITIES, dev, "sharded stereo (world 1)")
+    lap("stereo")
+
+    # (d) the folder: phase 7's 24 views at the balanced preset
+    folder = os.path.join(tmp, "imgs")
+    kw = dict(pair_mode="consecutive", pair_window=FOLDER_PAIR_WINDOW,
+              batch_size=FOLDER_BATCH)
+    pipe = tv.create_pipeline("balanced", device=dev)
+    raw = raw_match_counts(pipe)
+    reset_counts(pm, ps, psg)
+    t0 = time.perf_counter()
+    summary = match_folder_sharded(folder, os.path.join(tmp, "par_sharded"),
+                                   1, 0, pipeline=pipe, **kw)
+    sync()
+    out["folder_s"] = time.perf_counter() - t0
+    n = kernel_counts(pm, ps, psg)
+    out["launches"]["match_folder_sharded"] = n
+    if not (n["ori_desc"] and n["knn2"]):
+        fail(f"the sharded folder run did not launch ori_desc and knn2: {n}")
+    pairs = create_pairs_from_metadata(scan_folder_metadata(folder),
+                                       "consecutive", FOLDER_PAIR_WINDOW)
+    pipe1 = tv.create_pipeline("balanced", device=dev)
+    raw1 = raw_match_counts(pipe1)
+    one = pipe1.match_folder(folder, os.path.join(tmp, "par_unsharded"),
+                             pairs=pairs, batch_size=FOLDER_BATCH)
+    st = summary["stats"]
+    if raw != raw1 or len(raw) != len(pairs) or st["completed"] != len(pairs) \
+            or st["total_matches"] != one["stats"]["total_matches"] \
+            or summary["global"]["pairs"] != len(pairs):
+        fail("match_folder_sharded (world 1) differs from match_folder on "
+             "the same pairs (raw match counts, pairs, total matches)")
+    out["folder_pairs"] = len(pairs)
+    out["folder_raw"] = {m: float(np.mean([c[m] for c in raw.values()]))
+                         for m in next(iter(raw.values()))}
+    lap("folder")
+    return out
+
+
+def rank_small(torch, dev, tmp):
+    """A rank of the world of 2 on gloo (both on cuda:0), at the dryrun's
+    sizes: the pair step on a (1, 2) mesh, ring_knn2, sharded BA, the
+    sharded stereo and the dense pipeline's sharded branch on 3
+    neighbours, the SfM pipeline's sharded global BA, global_pair_stats.
+    Each against its single-rank counterpart on this rank, at the CPU
+    tests' bars; returns what the ranks must agree on."""
+    import torch.distributed as dist
+    import tpu3drec_torch as tv
+    from tpu3drec_torch.ops import pallas_match as pm
+    from tpu3drec_torch.ops import pallas_sample as ps
+    from tpu3drec_torch.ops import pallas_sgm as psg
+    from tpu3drec_torch.ops.match import knn2
+    from tpu3drec_torch.parallel.ba import sharded_bundle_adjust
+    from tpu3drec_torch.parallel.dense import sharded_pairwise_stereo
+    from tpu3drec_torch.parallel.mesh import make_mesh
+    from tpu3drec_torch.parallel.multihost import global_pair_stats, shard_pairs
+    from tpu3drec_torch.parallel.pairs import make_batched_pair_step, ring_knn2
+    rank, world = dist.get_rank(), dist.get_world_size()
+    sync = torch.cuda.synchronize
+    out = {"launches": {}}
+    out["seconds"], lap = laps()
+    tp_mesh, dp_mesh = make_mesh(shape=(1, world)), make_mesh(shape=(world, 1))
+    t_ = lambda a: torch.as_tensor(a, device=dev)
+
+    # the pair step on (1, 2): tp_knn2 splits desc2's columns
+    base = np.stack([synthetic_photo(*PAR_SIZE, SEED + 50 + i)
+                     for i in range(PAR_PAIRS)])
+    img1 = t_(base)
+    img2 = t_(np.stack([np.roll(b, (2, 1), axis=(0, 1)) for b in base]))
+    u = pair_uniforms(torch, PAR_PAIRS, PAR_HYPOTHESES, dev)
+    detect = sift_detect_fn(PAR_FEATURES)
+    step = make_batched_pair_step(tp_mesh, detect, num_hypotheses=PAR_HYPOTHESES)
+    reset_counts(pm, ps, psg)
+    st = step(img1, img2, u)
+    sync()
+    n = kernel_counts(pm, ps, psg)
+    out["launches"]["tp_knn2"] = n
+    if not (n["ori_desc"] and n["knn2"]):
+        fail(f"rank {rank}: the (1, 2) pair step did not launch ori_desc "
+             f"and knn2: {n}")
+    one = pair_stages_l2(detect, img1, img2, u)
+    nm, nm1 = (to_host(x["num_matches"]) for x in (st, one))
+    if (np.abs(nm - nm1) > np.maximum(2, 0.02 * nm1)).any() \
+            or int(to_host(st["total_matches"])[0]) != int(nm.sum()) \
+            or nm.sum() < 5 * PAR_PAIRS:
+        fail(f"rank {rank}: the (1, 2) pair step's matches {nm} vs one "
+             f"rank's {nm1} (bar max(2, 2%), total the sum, >= 5 a pair)")
+    out["pair_step"] = to_host(st)
+    lap("pair_step")
+
+    # ring_knn2 over the 2 ranks against knn2 on the whole sets
+    N, M, D = PAR_KNN
+    rng = np.random.default_rng(3)
+    d1 = rng.normal(size=(N, D)).astype(np.float32)
+    d2 = rng.normal(size=(M, D)).astype(np.float32)
+    m1, m2 = rng.random(N) > 0.1, rng.random(M) > 0.1
+    rows = slice(rank * N // world, (rank + 1) * N // world)
+    cols = slice(rank * M // world, (rank + 1) * M // world)
+    reset_counts(pm, ps, psg)
+    idx, dist_ = ring_knn2(t_(d1[rows]), t_(d2[cols]), t_(m1[rows]),
+                           t_(m2[cols]), tp_mesh.get_group("tp"))
+    sync()
+    out["launches"]["ring_knn2"] = kernel_counts(pm, ps, psg)
+    if not out["launches"]["ring_knn2"]["knn2"]:
+        fail(f"rank {rank}: ring_knn2 never launched knn2")
+    ridx, rdist = knn2(t_(d1), t_(d2), t_(m1), t_(m2), metric="l2")
+    idx, dist_, ridx, rdist = (to_host(x) for x in (idx, dist_, ridx[rows],
+                                                     rdist[rows]))
+    v = m1[rows]
+    clear = v & (rdist[:, 0] < rdist[:, 1])
+    if not (np.allclose(dist_[v], rdist[v], rtol=PAR_KNN_TOL, atol=PAR_KNN_TOL)
+            and np.array_equal(idx[clear], ridx[clear])
+            and (dist_[~v] == np.float32(3.4e38)).all()):
+        fail(f"rank {rank}: ring_knn2 differs from knn2 on the whole sets")
+    lap("ring_knn2")
+
+    # sharded BA on the dryrun's problem against one rank's solve
+    arrays = small_ba_problem(6, 11)
+    cfg = tv.BAConfig(**PAR_BA_CFG)
+    res = sharded_bundle_adjust(tv.BAProblem.from_numpy(**arrays, device=dev),
+                                dp_mesh, cfg)
+    one = tv.bundle_adjust(tv.BAProblem.from_numpy(**arrays, device=dev), cfg)
+    dcam = float((res.cam_params - one.cam_params).abs().max())
+    mr = float(one.mean_reproj_px)
+    if dcam > PAR_BA_TOL or abs(float(res.mean_reproj_px) - mr) \
+            > PAR_BA_TOL * max(1.0, mr) or int(res.iterations) != 3:
+        fail(f"rank {rank}: sharded BA differs from one rank's solve "
+             f"(cameras within {dcam:.2e}, bar {PAR_BA_TOL})")
+    out["ba"] = to_host({k: getattr(res, k) for k in (
+        "cam_params", "points", "cost_initial", "cost_final", "iterations",
+        "mean_reproj_px")})
+    out["ba_cam_gap"] = dcam
+    lap("ba")
+
+    # the sharded stereo on 3 neighbours (its second chunk padded), and
+    # the dense pipeline's sharded branch on the same folder
+    sparse, images = small_stereo_folder()
+    neigh, K_ref = stereo_neighbours(sparse, images, "v0.png")
+    reset_counts(pm, ps, psg)
+    outs = sharded_pairwise_stereo(dp_mesh, images["v0.png"], neigh, K_ref,
+                                   PAR_STEREO_DISPARITIES, device=dev)
+    sync()
+    out["launches"]["sharded_stereo"] = kernel_counts(pm, ps, psg)
+    if not out["launches"]["sharded_stereo"]["sgm"]:
+        fail(f"rank {rank}: the sharded stereo never launched sgm")
+    check_stereo_per_pair(torch, outs, neigh, images["v0.png"], K_ref,
+                          PAR_STEREO_DISPARITIES, dev,
+                          f"sharded stereo (rank {rank} of 2)")
+    out["stereo"] = to_host(outs)
+    lap("stereo")
+    dense = tv.DenseReconstructionPipeline(
+        num_disparities=PAR_STEREO_DISPARITIES, device=dev)
+    rep = dense.run_complete_pipeline(sparse, images, reference_view="v0.png")
+    out["dense"] = {"depth": dense._arrays["depth"],
+                    "valid_fraction": rep["depth"]["valid_fraction"],
+                    "faces": rep["mesh"]["num_faces"]}
+    fused = tv.DenseReconstructionPipeline(
+        num_disparities=PAR_STEREO_DISPARITIES, device=dev,
+        use_sharded_stereo=False)
+    fused.run_complete_pipeline(sparse, images, reference_view="v0.png")
+    d, f = dense._arrays["depth"], fused._arrays["depth"]
+    both = (d > 0) & (f > 0)
+    if (d > 0).mean() < 0.5 or ((d > 0) == (f > 0)).mean() <= 0.999 \
+            or not np.allclose(d[both], f[both], rtol=1e-4, atol=1e-4):
+        fail(f"rank {rank}: the dense pipeline's sharded branch differs from "
+             f"its one-card stereo (valid on {(d > 0).mean():.3f})")
+    lap("dense_pipeline")
+
+    # the SfM pipeline's sharded global BA
+    md, info, _, _ = small_sfm_scene()
+    pipe = tv.SfMPipeline(tv.SfMConfig(sharded_ba_min_obs=0), device=dev)
+    recon = pipe.reconstruct(dict(md), info)
+    ga = [h for h in pipe.history if h.get("phase") == "global_ba"]
+    if not ga or ga[-1].get("sharded") != world or recon.num_cameras != 5 \
+            or not ga[-1]["mean_reproj_px"] < 2.0:
+        fail(f"rank {rank}: the SfM pipeline's global BA did not shard "
+             f"over {world} ranks to the bars ({ga[-1:]}, "
+             f"{recon.num_cameras} cameras)")
+    out["sfm"] = {"global_ba": {k: v for k, v in ga[-1].items()
+                                if k != "time_s"},
+                  "cameras": {k: (c.R, c.t) for k, c in recon.cameras.items()},
+                  "points": np.asarray(recon.points).copy()}
+    lap("sfm_pipeline")
+
+    pairs = [(f"i{k}.png", f"i{k + 1}.png") for k in range(7)]
+    mine = shard_pairs(pairs, world, rank)
+    out["stats"] = global_pair_stats({"pairs": float(len(mine)),
+                                      "matches": 10.0 * (rank + 1)})
+    if out["stats"] != {"matches": 30.0, "pairs": 7.0}:
+        fail(f"rank {rank}: global_pair_stats {out['stats']}")
+    return out
+
+
+def parallel_rank(rank, world, backend, port, tmp, go):
+    """One rank (spawned): rank, world size and local rank come in through
+    the environment, as torchrun sets them; joins the world through
+    `init_multihost`, waits for the file `go` (if given) and writes its
+    results for the parent."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    # one host: the loopback interface carries both transports
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    import pickle
+    import torch
+    from tpu3drec_torch.parallel.mesh import rank_device
+    from tpu3drec_torch.parallel.multihost import init_multihost
+    init_multihost(f"localhost:{port}", world, rank,
+                   device="cuda" if backend == "nccl" else "cpu")
+    dev = rank_device()
+    torch.cuda.set_device(dev)
+    deadline = time.monotonic() + PAR_TIMEOUT_S
+    while go and not os.path.exists(go):
+        if time.monotonic() > deadline:
+            fail(f"world of {world}: no go after {PAR_TIMEOUT_S} s")
+        time.sleep(0.05)
+    try:
+        res = (rank_full_width if world == 1 else rank_small)(torch, dev, tmp)
+        with open(os.path.join(tmp, f"par{world}_{rank}.pkl"), "wb") as fh:
+            pickle.dump(res, fh)
+    finally:
+        torch.distributed.destroy_process_group()
+    sys.stdout.flush()
+
+
+def spawn_world(world, backend, tmp, go=None):
+    """`world` ranks of `parallel_rank` started with the spawn method on
+    one free localhost port."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    sys.stdout.flush()
+    procs = [ctx.Process(target=parallel_rank,
+                         args=(rank, world, backend, port, tmp, go))
+             for rank in range(world)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def join_world(procs, backend, tmp):
+    """Waits for a world's ranks; fails unless each exits 0 within
+    PAR_TIMEOUT_S. Returns their results."""
+    import pickle
+    world = len(procs)
+    deadline = time.monotonic() + PAR_TIMEOUT_S
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    late = [r for r, p in enumerate(procs) if p.is_alive()]
+    if late:
+        fail(f"world of {world} ({backend}): ranks {late} did not end in "
+             f"{PAR_TIMEOUT_S} s")
+    bad = {r: p.exitcode for r, p in enumerate(procs) if p.exitcode != 0}
+    if bad:
+        fail(f"world of {world} ({backend}): ranks exited {bad}")
+    out = []
+    for rank in range(world):
+        with open(os.path.join(tmp, f"par{world}_{rank}.pkl"), "rb") as fh:
+            out.append(pickle.load(fh))
+    return out
+
+
+def run_parallel(torch, card, tmp, img1, img2, beside):
+    """Phase 12: the parallel paths in a world of 1 rank on NCCL at full
+    width (phase 3's pairs `img1`, `img2`, phase 5's BA, phase 4's stereo
+    and phase 7's folder in `tmp`/imgs) and a world of 2 ranks on gloo on
+    the same card at the dryrun's sizes. `beside`: phases 3-5's pairs/s,
+    BA ms/LM-iter and MP-depth/s, printed next to the sharded ones."""
+    t_phase = time.perf_counter()
+    torch.save({"img1": img1.cpu(), "img2": img2.cpu()},
+               os.path.join(tmp, "pairs.pt"))
+    # world 2 starts beside world 1 and waits, its processes up, until
+    # world 1 has ended: the worlds' work never overlaps
+    go = os.path.join(tmp, "par1.done")
+    t0 = time.perf_counter()
+    procs = spawn_world(1, "nccl", tmp) + spawn_world(2, "gloo", tmp, go)
+    try:
+        (w1,) = join_world(procs[:1], "nccl", tmp)
+        s1 = time.perf_counter() - t0
+        open(go, "w").close()
+        t0 = time.perf_counter()
+        w2 = join_world(procs[1:], "gloo", tmp)
+        s2 = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    st = w1["ba_stats"]
+    print(f"world of 1 rank on NCCL (cuda:0, {s1:.1f} s with its start; "
+          f"seconds by path {w1['seconds']}): every path bit-equal to the "
+          f"unsharded card path with the same inputs and draws; launches "
+          f"{w1['launches']}")
+    print(f"  sharded pair step (1 x 1 mesh, tp_knn2 'l2'): "
+          f"{w1['pairs_per_s']:.3f} pairs/s ({BATCH} pairs, mean of "
+          f"{PAR_REPS}; phase 3's int8 step {beside['pairs_per_s']:.3f}); "
+          f"mean matches {w1['pair_stats']['num_matches']:.2f}, inliers "
+          f"{w1['pair_stats']['num_inliers']:.2f}")
+    print(f"  sharded global BA: {w1['ba_ms_per_iter']:.3f} ms/LM-iter "
+          f"(host sharding and the broadcast included; phase 5's "
+          f"{beside['ba_ms']:.3f}); mean reprojection {st[5]:.4f} -> "
+          f"{st[3]:.4f} px in {int(st[2])} iterations")
+    print(f"  sharded stereo: {w1['mp_depth_per_s']:.3f} MP-depth/s (2 pairs "
+          f"of {W}x{H}, {NUM_DISPARITIES} disparities, one run; phase 4's "
+          f"fused stage {beside['mp_depth_s']:.3f})")
+    print(f"  match_folder_sharded: {w1['folder_pairs']} pairs in "
+          f"{w1['folder_s']:.2f} s, mean raw matches {w1['folder_raw']}; "
+          f"raw counts equal to match_folder's on every pair")
+
+    for key in ("pair_step", "ba", "stereo", "dense", "sfm", "stats"):
+        if not same_values(w2[0][key], w2[1][key]):
+            fail(f"world of 2 (gloo): the ranks' {key} differ")
+    ga = w2[0]["sfm"]["global_ba"]
+    print(f"world of 2 ranks on gloo (both on cuda:0, started beside world "
+          f"1; {s2:.1f} s after its go): replicated outputs bit-identical "
+          f"across the ranks; (1, 2) pair step matches {w2[0]['pair_step']['num_matches']} "
+          f"(total {int(w2[0]['pair_step']['total_matches'][0])}); sharded BA "
+          f"cameras within {w2[0]['ba_cam_gap']:.2e} of one rank's solve; "
+          f"dense pipeline's sharded branch valid on "
+          f"{w2[0]['dense']['valid_fraction']:.4f}; SfM global BA "
+          f"{{'sharded': {ga['sharded']}, 'mean_reproj_px': "
+          f"{ga['mean_reproj_px']:.4f}}}; global_pair_stats "
+          f"{w2[0]['stats']}; launches by rank "
+          f"{[w['launches'] for w in w2]}; rank 0's seconds by path "
+          f"{w2[0]['seconds']}")
+    print(f"parallel phase on {card}: {time.perf_counter() - t_phase:.1f} s "
+          f"(scaling across cards is not measured: one card)")
+    return {"launches": {
+        "sharded_pair_step": w1["launches"]["sharded_pair_step"],
+        "sharded_stereo": w1["launches"]["sharded_stereo"],
+        "match_folder_sharded": w1["launches"]["match_folder_sharded"],
+        "tp_knn2": w2[0]["launches"]["tp_knn2"],
+        "ring_knn2": w2[0]["launches"]["ring_knn2"],
+        "sharded_stereo_gloo": w2[0]["launches"]["sharded_stereo"]},
+        "knn2": {f"tp_knn2_{k}": v for k, v in w1["tp_knn2"].items()}}
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "tpu3drec_torch", "csrc")):
@@ -4141,6 +4789,7 @@ def main():
         out = pair_fn(img1, img2)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / REPS
+    beside = {"pairs_per_s": BATCH / dt}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"pair step: {BATCH / dt:.3f} pairs/s ({dt * 1e3:.1f} ms per batch "
           f"of {BATCH}, mean of {REPS}); peak device memory {peak_gb:.2f} GB")
@@ -4190,11 +4839,12 @@ def main():
     t0 = time.perf_counter()
     fields["sgm"] = run_dense(torch, kind, dev)
     launches["sgm"] = fields["sgm"]["launches"]
+    beside["mp_depth_s"] = fields["sgm"].pop("mp_depth_s")
     phase_s["4 dense"] = time.perf_counter() - t0
 
     # ---- 5. SfM geometry and bundle adjustment
     t0 = time.perf_counter()
-    run_sfm(torch, card, dev)
+    beside["ba_ms"] = run_sfm(torch, card, dev)
     phase_s["5 sfm ops"] = time.perf_counter() - t0
 
     # ---- 6. the incremental SfM pipeline
@@ -4235,12 +4885,18 @@ def main():
                      img2[:SERVE_REQUESTS].cpu().numpy())),
             Hgt[:SERVE_REQUESTS])
         phase_s["11 user surface"] = time.perf_counter() - t0
+
+        # ---- 12. the parallel paths on torch.distributed
+        t0 = time.perf_counter()
+        par = run_parallel(torch, card, tmp, img1, img2, beside)
+        fields["knn2"].update(par["knn2"])
+        phase_s["12 parallel paths"] = time.perf_counter() - t0
     for f in (folder, accurate, deep, surface):
         fields["knn2"].update(f["knn2"])
     for f in (folder, accurate, surface):
         fields["ori_desc"].update(f["ori_desc"])
 
-    # ---- 12. the kernels line
+    # ---- 13. the kernels line
     sources = {
         "ori_desc": ("tpu3drec_torch/csrc/ori_desc.cu",
                      "tpu3drec/ops/pallas_sample.py:541"),
@@ -4269,11 +4925,13 @@ def main():
                                 rest["launches"].items()}
                                if name == "sgm" else {}),
                             **{path: n[name] for path, n in
-                               surface["launches"].items()}},
+                               surface["launches"].items()},
+                            **{path: n[name] for path, n in
+                               par["launches"].items() if n[name]}},
                         **{k: v for k, v in f.items() if k.startswith(
                             ("full_", "library_bf16", "kernel_ms", "orb_", "f32_",
                              "folder_", "akaze_", "brisk_", "accurate_",
-                             "sweep_", "deep_", "serve_"))}})
+                             "sweep_", "deep_", "serve_", "tp_knn2_"))}})
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in phase_s.items()))
     print(f"chip_smoke wall time: {time.perf_counter() - t_main:.1f} s "

@@ -231,12 +231,14 @@ def test_device_none_means_cuda():
 
 
 def test_sharded_global_ba_is_not_run_on_one_card(monkeypatch):
+    """The sharded global BA runs only inside a process group of more than
+    one rank (one process a card): without a group the single-card solve
+    runs and records no "sharded", however many cards are visible."""
     matches_data, image_info, *_ = make_scene(n_views=3)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert not torch.distributed.is_initialized()
     pipe = tv.SfMPipeline(tv.SfMConfig(sharded_ba_min_obs=10), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 #10"):
-        pipe.reconstruct(matches_data, image_info)
-    # without the sharded request the single-device solve runs
-    recon = tv.SfMPipeline(tv.SfMConfig(use_sharded_global_ba=False),
-                           device="cpu").reconstruct(matches_data, image_info)
+    recon = pipe.reconstruct(matches_data, image_info)
     assert recon.num_cameras == 3
+    ga = [h for h in pipe.history if h.get("phase") == "global_ba"]
+    assert ga and "sharded" not in ga[-1], ga

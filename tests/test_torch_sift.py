@@ -235,7 +235,11 @@ def test_port_imports_no_jax():
             "tpu3drec_torch.bench.runner, tpu3drec_torch.viz, "
             "tpu3drec_torch.sfm.calibration, tpu3drec_torch.data, "
             "tpu3drec_torch.data.downloader, tpu3drec_torch.serve, "
-            "tpu3drec_torch.cli, tpu3drec_torch.compat; "
+            "tpu3drec_torch.cli, tpu3drec_torch.compat, "
+            "tpu3drec_torch.parallel, tpu3drec_torch.parallel.mesh, "
+            "tpu3drec_torch.parallel.pairs, tpu3drec_torch.parallel.ba, "
+            "tpu3drec_torch.parallel.dense, "
+            "tpu3drec_torch.parallel.multihost; "
             "import tpu3drec_torch.ops.orb as o; o._pattern_table('opencv'); "
             "bad = [m for m in ('jax', 'flax', 'tpu3drec', 'bench', "
             "'__graft_entry__') if m in sys.modules]; "

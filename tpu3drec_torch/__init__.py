@@ -10,7 +10,8 @@ Schur LM, `iterative_refinement`), the incremental SfM pipeline
 (`SfMPipeline`, `reconstruct_scene`: matches -> `Reconstruction` and its
 exports) and the dense stage (rectify -> SGM
 stereo -> depth fusion -> point cloud -> TSDF mesh,
-`run_dense_reconstruction`), with the reference's Pallas TPU kernels rewritten as hand-written CUDA
+`run_dense_reconstruction`) and the multi-card paths on
+`torch.distributed` (`tpu3drec_torch.parallel`: one process a card), with the reference's Pallas TPU kernels rewritten as hand-written CUDA
 C++ kernels for sm_90a (`csrc/`). Every kernel has a plain PyTorch version of the same function
 beside it; a wrapper runs the plain version only for CPU tensors and
 launches the kernel (or raises) for CUDA tensors.

@@ -39,6 +39,7 @@ from torch.func import jacfwd, vmap
 
 from tpu3drec_torch.core.device import resolve_device
 from tpu3drec_torch.ops.lie import exp_so3
+from tpu3drec_torch.parallel.mesh import all_sum
 
 CAM_DIM = 10  # rvec(3) + tvec(3) + fx, fy, cx, cy
 CG_CHECK = 8  # CG iterations between host reads of the stop flag
@@ -248,21 +249,32 @@ def bundle_adjust(prob: BAProblem,
     `lambda0` warm-starts the damping (the previous solve's final lambda,
     clipped to [1e-9, 1e6]); `skip_below_px` replaces the value of
     `config.skip_if_below_px` (the config field still enables the gate).
-    The sharded form (`axis_name`) is not ported."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "bundle_adjust(axis_name=...): the sharded point-block path "
-            "(parallel/ba.py) is ROADMAP Queue 1 #10, not ported yet")
+
+    With `axis_name` (a process group) every rank of the group calls this
+    with its own block of points: `points`, `point_mask` and the
+    observations are this rank's (obs_pt LOCAL point ids), the cameras and
+    `param_mask` the same on every rank. Each camera-indexed sum (U, gc,
+    the CG matvec's back term, the rhs term, the block-Jacobi diagonal,
+    the Huber cost, the mean reprojections' sums) is `all_sum`'d over the
+    group at the reference's points, so every rank runs one LM/CG state
+    while the point work stays local. `parallel/ba.py:
+    sharded_bundle_adjust` partitions a global problem and drives it."""
     C = prob.cam_params.shape[0]
     P = prob.points.shape[0]
     dev = prob.cam_params.device
     delta = config.huber_delta
     solver = config.schur_solver
     if solver == "auto":
-        solver = "dense" if C <= 32 else "cg"
+        solver = "dense" if (C <= 32 and axis_name is None) else "cg"
     if solver not in ("dense", "cg"):
         raise ValueError(f"schur_solver must be 'auto', 'dense' or 'cg', "
                          f"got {config.schur_solver!r}")
+    if axis_name is not None and solver != "cg":
+        raise ValueError("sharded bundle_adjust supports schur_solver='cg' "
+                         "only (the dense W-block tensor is point-global)")
+
+    def allsum(x):
+        return x if axis_name is None else all_sum(x, axis_name)
 
     # observations sorted by point id (stable), as the reference sorts
     order = torch.argsort(prob.obs_pt, stable=True)
@@ -286,18 +298,20 @@ def bundle_adjust(prob: BAProblem,
 
     def cost_of(cams, pts):
         r = _residual(cams[obs_cam], pts[obs_pt], obs_uv)
-        return _huber_cost(r, live, delta)
+        return allsum(_huber_cost(r, live, delta))
 
     def solve_cg(Ud, Wm, WVm, gc, gp):
         def matvec(x):
             z = _segsum(torch.einsum("mij,mi->mj", Wm, x[obs_cam]), pt_seg)
-            back = _segsum(torch.einsum("mil,ml->mi", WVm, z[obs_pt]), cam_seg)
+            back = allsum(_segsum(torch.einsum("mil,ml->mi", WVm, z[obs_pt]),
+                                  cam_seg))
             return (torch.einsum("cij,cj->ci", Ud, x) - back) * pmask
 
-        rhs = (gc - _segsum(torch.einsum("mil,ml->mi", WVm, gp[obs_pt]),
-                            cam_seg)) * pmask
+        rhs = (gc - allsum(_segsum(torch.einsum("mil,ml->mi", WVm,
+                                                gp[obs_pt]), cam_seg))) * pmask
         # block-Jacobi preconditioner from the exact diagonal blocks
-        Dblk = Ud - _segsum(torch.einsum("mil,mjl->mij", WVm, Wm), cam_seg)
+        Dblk = Ud - allsum(_segsum(torch.einsum("mil,mjl->mij", WVm, Wm),
+                                   cam_seg))
         Dblk = (Dblk * (pmask[:, :, None] * pmask[:, None, :])
                 + eyec * (1.0 - pmask[:, :, None] * eyec))
         Minv = torch.linalg.inv_ex(Dblk + 1e-8 * eyec)[0]
@@ -361,9 +375,11 @@ def bundle_adjust(prob: BAProblem,
         Jp = Jp * sw[:, None, None]
         nrw = -(r * sw[:, None])
 
-        U = _segsum(torch.einsum("mri,mrj->mij", Jc, Jc), cam_seg)
+        # camera-indexed sums span every rank's observations (allsum),
+        # point-indexed ones are local
+        U = allsum(_segsum(torch.einsum("mri,mrj->mij", Jc, Jc), cam_seg))
         V = _segsum(torch.einsum("mri,mrj->mij", Jp, Jp), pt_seg)
-        gc = _segsum(torch.einsum("mri,mr->mi", Jc, nrw), cam_seg)
+        gc = allsum(_segsum(torch.einsum("mri,mr->mi", Jc, nrw), cam_seg))
         gp = _segsum(torch.einsum("mri,mr->mi", Jp, nrw), pt_seg)
         Ud = _damp(U, lam, 1e-6)
         Vinv = torch.linalg.inv_ex(_damp(V, lam, 1e-8) + 1e-9 * eye3)[0]
@@ -384,7 +400,7 @@ def bundle_adjust(prob: BAProblem,
     # the initial masked mean reprojection, for the skip gate and stats
     n0 = torch.linalg.vector_norm(_residual(cams[obs_cam], pts[obs_pt],
                                             obs_uv), dim=-1)
-    mr0 = (n0 * live).sum() / torch.clamp(live.sum(), min=1.0)
+    mr0 = allsum((n0 * live).sum()) / torch.clamp(allsum(live.sum()), min=1.0)
     if config.skip_if_below_px <= 0:
         done = torch.zeros((), dtype=torch.bool, device=dev)
     else:
@@ -414,7 +430,7 @@ def bundle_adjust(prob: BAProblem,
     nf = torch.linalg.vector_norm(
         _residual(cams[obs_cam], pts[obs_pt], obs_uv), dim=-1)
     mf = obs_mask.to(nf.dtype)
-    mean_px = (nf * mf).sum() / torch.clamp(mf.sum(), min=1.0)
+    mean_px = allsum((nf * mf).sum()) / torch.clamp(allsum(mf.sum()), min=1.0)
     iterations = torch.tensor(iters, dtype=torch.int32, device=dev)
     stats = torch.stack([cost0, cost, iterations.to(torch.float32), mean_px,
                          lam, mr0])

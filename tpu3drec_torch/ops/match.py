@@ -11,6 +11,8 @@ Port of `tpu3drec/ops/match.py`. Every function takes one descriptor set
 
 The kernel returns the raw top-2 (`pallas_match.knn2_raw`); the |a|^2
 add-back and the square root run here, on the two winners only.
+`distance_matrix` builds the whole (N, M) matrix in plain torch, as the
+reference's does; no kernel path uses it.
 """
 
 from __future__ import annotations
@@ -35,6 +37,34 @@ def quantize_u8(desc: torch.Tensor) -> torch.Tensor:
     """float descriptors on the 0..255 scale -> int8 (round half to even,
     shifted by -128, distance-invariant)."""
     return (torch.round(torch.clamp(desc, 0.0, 255.0)) - 128.0).to(torch.int8)
+
+
+def distance_matrix(desc1: torch.Tensor, desc2: torch.Tensor,
+                    metric: str = "l2") -> torch.Tensor:
+    """(..., N, D), (..., M, D) -> (..., N, M) distances (the reference's
+    `distance_matrix`): Euclidean for `l2` (full float32) and `l2_int8`
+    (exact integer squares), bit-flip counts for `hamming_pm1`. The
+    integer metrics multiply int8 values in float32, exact for D <= 1024
+    (every partial sum stays below 2**24)."""
+    if metric not in ("l2", "l2_int8", "hamming_pm1"):
+        raise ValueError(f"unknown metric {metric!r}")
+    if metric == "l2":
+        a, b = desc1.to(torch.float32), desc2.to(torch.float32)
+        d2 = ((a * a).sum(-1)[..., :, None] + (b * b).sum(-1)[..., None, :]
+              - 2.0 * torch.matmul(a, b.transpose(-1, -2)))
+        return torch.sqrt(torch.clamp(d2, min=0.0))
+    if metric == "l2_int8":
+        q1, q2 = quantize_u8(desc1), quantize_u8(desc2)
+    else:
+        q1, q2 = desc1.to(torch.int8), desc2.to(torch.int8)
+    dot = torch.matmul(q1.to(torch.float32),
+                       q2.to(torch.float32).transpose(-1, -2)).to(torch.int32)
+    if metric == "hamming_pm1":
+        return (desc1.shape[-1] - dot).to(torch.float32) * 0.5
+    n1 = q1.to(torch.int32).square().sum(-1, dtype=torch.int32)
+    n2 = q2.to(torch.int32).square().sum(-1, dtype=torch.int32)
+    d2 = n1[..., :, None] + n2[..., None, :] - 2 * dot
+    return torch.sqrt(torch.clamp(d2, min=0).to(torch.float32))
 
 
 def _operands(desc1, desc2, metric: str):
@@ -74,10 +104,14 @@ def _operands(desc1, desc2, metric: str):
 
 
 def knn2(desc1: torch.Tensor, desc2: torch.Tensor,
-         mask1: torch.Tensor, mask2: torch.Tensor, metric: str = "l2"):
+         mask1: torch.Tensor, mask2: torch.Tensor, metric: str = "l2",
+         masked_inf: bool = False):
     """Masked 2-NN: (..., N, 2) int32 neighbour indices into desc2 and
     (..., N, 2) float32 distances. Masked rows of desc2 never win; rows of
-    desc1 with mask1 False get values the caller must mask."""
+    desc1 with mask1 False get values the caller must mask. A slot that
+    found no valid column reads the post-processed sentinel, or with
+    `masked_inf` 3.4e38 whatever the metric (the reference's `tp_knn2`
+    masks its distance matrix so before its top-2)."""
     del mask1  # rows of desc1 are scored regardless, as in the reference
     single = desc1.ndim == 2
     if single:
@@ -86,6 +120,9 @@ def knn2(desc1: torch.Tensor, desc2: torch.Tensor,
     idx, raw = knn2_raw(a.contiguous(), b.contiguous(), bnorm.contiguous(),
                         mask2.contiguous())
     dist = post(raw)
+    if masked_inf:
+        big = INT_BIG if a.dtype == torch.int8 else F32_BIG
+        dist = torch.where(raw == big, torch.full_like(dist, _INF), dist)
     if single:
         return idx[0], dist[0]
     return idx, dist

@@ -21,8 +21,9 @@ depth-grid or Delaunay mesh; a `RuntimeError` (a CUDA or kernel fault)
 propagates. Besides the stereo stage's ranges (`ops/stereo.py`), the
 later stages run under profiler ranges `dense.outliers`,
 `dense.normals`, `dense.cloud_quality`, `dense.mesh_extract` and
-`dense.mesh_post`. Not ported yet (ROADMAP.md Queue 1 #10): the sharded
-multi-card stereo branch, which raises NotImplementedError.
+`dense.mesh_post`. Inside a process group of more than one rank (one
+process a card, `torchrun --nproc-per-node N`) the stereo pairs are split
+one a rank (`parallel/dense.py`) and every rank fuses the gathered depths.
 """
 
 from __future__ import annotations
@@ -41,9 +42,12 @@ from tpu3drec_torch.ops import mesh as mesh_ops
 from tpu3drec_torch.ops import pointcloud as pc
 from tpu3drec_torch.ops.implicit import _median_nn_spacing
 from tpu3drec_torch.ops.stereo import (
-    fuse_depth_blocks, stereo_depth_pairs_block, stereo_depth_pairs_fused,
+    fuse_depth_blocks, fuse_depth_maps, stereo_depth_pairs_block,
+    stereo_depth_pairs_fused,
 )
 from tpu3drec_torch.ops.tsdf import tsdf_mesh
+from tpu3drec_torch.parallel.dense import sharded_pairwise_stereo
+from tpu3drec_torch.parallel.mesh import make_mesh, world_size
 
 _IMPLICIT = ("poisson", "ball_pivot", "alpha")
 _FUSED_MAX = 6   # neighbour views fused in one call up to here
@@ -116,8 +120,12 @@ class DenseReconstructionPipeline:
             K2l.append(K2.astype(np.float32))
             Rl.append(R_rel.astype(np.float32))
             tl.append((t2 - R_rel @ t_ref).astype(np.float32))
-        K2l, Rl, tl = (torch.from_numpy(np.stack(a)) for a in (K2l, Rl, tl))
         K_ref32 = torch.from_numpy(K_ref.astype(np.float32))
+        if (self.use_sharded_stereo and world_size() > 1
+                and len(others) > 1):
+            return self._sharded_stereo(img_ref, images, others, K_ref32,
+                                        K2l, Rl, tl)
+        K2l, Rl, tl = (torch.from_numpy(np.stack(a)) for a in (K2l, Rl, tl))
         im_dev = torch.from_numpy(np.stack(
             [np.asarray(images[n], np.float32) for n in others])).to(dev)
         if len(others) <= _FUSED_MAX:
@@ -145,6 +153,26 @@ class DenseReconstructionPipeline:
         return (fout["fused_depth"], fout["fused_valid"],
                 [float(b) for b in bs], fracs)
 
+    def _sharded_stereo(self, img_ref, images, others, K_ref32, K2l, Rl, tl):
+        """Stage 1 over the default process group: one pair a rank along
+        a (world, 1) mesh (ranks past the pair count take the padded
+        pairs), then fusion of the gathered depths on every rank."""
+        mesh = make_mesh(shape=(world_size(), 1))
+        neigh = [(np.asarray(images[n], np.float32), k, r, t, None)
+                 for n, k, r, t in zip(others, K2l, Rl, tl)]
+        outs = sharded_pairwise_stereo(mesh, img_ref, neigh, K_ref32,
+                                       num_disparities=self.num_disparities,
+                                       device=self.device)
+        valids = torch.stack([o["valid"] for o in outs])
+        baselines = [float(o["baseline"]) for o in outs]
+        with record_function("dense.fuse"):
+            fused, fused_valid = fuse_depth_maps(
+                torch.stack([o["depth"] for o in outs]), valids,
+                torch.tensor(baselines, dtype=torch.float32),
+                method=self.fusion_method)
+        fracs = torch.mean(valids.to(torch.float32), dim=(1, 2)).cpu().numpy()
+        return fused, fused_valid, baselines, fracs
+
     def run_complete_pipeline(self, sparse: Dict,
                               images: Dict[str, np.ndarray],
                               reference_view: Optional[str] = None,
@@ -159,11 +187,6 @@ class DenseReconstructionPipeline:
         ref = reference_view or names[len(names) // 2]
         others = [n for n in names if n != ref]
         dev = self.device
-        if (self.use_sharded_stereo and dev.type == "cuda"
-                and torch.cuda.device_count() > 1 and len(others) > 1):
-            raise NotImplementedError(
-                "sharded multi-card stereo is not ported yet (ROADMAP.md "
-                "Queue 1 #10); pass use_sharded_stereo=False for one card")
         t_start = time.perf_counter()
 
         def cam_of(n):

@@ -56,6 +56,8 @@ from tpu3drec_torch.ops.ransac import draw_uniform
 from tpu3drec_torch.ops.triangulate import (
     TriangulationConfig, triangulate_two_view,
 )
+from tpu3drec_torch.parallel.ba import sharded_bundle_adjust
+from tpu3drec_torch.parallel.mesh import make_mesh, world_size
 from tpu3drec_torch.sfm.correspondence import lookup_pair
 from tpu3drec_torch.sfm.correspondence import min_dists as _min_dists
 from tpu3drec_torch.sfm.intrinsics import ProgressiveIntrinsicsEstimator
@@ -90,9 +92,9 @@ class SfMConfig:
     # windowed BA solves the reduced local problem (window points and
     # their anchoring observations), so per-view BA stays about constant
     use_local_ba: bool = True
-    # the final global BA shards point blocks over the cards when more
-    # than one is visible and the problem is big enough; the sharded
-    # solve is not ported yet (ROADMAP Queue 1 #10), so that case raises
+    # the final global BA shards point blocks over the ranks of an
+    # initialised process group of more than one rank (one process a card:
+    # `torchrun --nproc-per-node N`) when the problem is big enough
     use_sharded_global_ba: bool = True
     sharded_ba_min_obs: int = 20_000
     ba_max_iters: int = 20
@@ -886,21 +888,36 @@ class SfMPipeline:
     def _global_ba(self, recon: Reconstruction) -> Dict:
         """Global BA, all cameras free but the first.
 
-        With more than one card visible and a big enough problem, the
-        reference shards point blocks over the cards. That solve is not
-        ported (ROADMAP Queue 1 #10): the case raises instead of quietly
-        running on one card."""
-        if (self.config.use_sharded_global_ba
-                and torch.cuda.device_count() > 1
+        Inside a process group of more than one rank (one process a card,
+        `torchrun --nproc-per-node N`; every rank runs the pipeline), a
+        big enough problem runs the sharded Schur-CG solve
+        (`parallel/ba.py`): points and observations split over the ranks,
+        cameras replicated; the history records `"sharded": world size`.
+        Outside a group the single-card solve runs, whatever the count of
+        cards."""
+        world = world_size()
+        if (self.config.use_sharded_global_ba and world > 1
                 and recon.num_observations
                 >= self.config.sharded_ba_min_obs
                 and recon.num_points >= 10
                 and recon.num_observations >= 10):
-            raise NotImplementedError(
-                "the sharded global BA over several cards is ROADMAP "
-                "Queue 1 #10, not ported yet; pass "
-                "SfMConfig(use_sharded_global_ba=False) for the "
-                "single-card solve")
+            prob, names = recon.to_ba_problem(
+                optimize_cams=None, fix_first=True,
+                optimize_intrinsics=self.config.optimize_intrinsics,
+                device=self.device)
+            res = sharded_bundle_adjust(
+                prob, make_mesh(shape=(world, 1)), BAConfig(
+                    max_iters=self.config.global_ba_max_iters,
+                    schur_solver="cg",
+                    optimize_intrinsics=self.config.optimize_intrinsics))
+            cams_np, pts_np, stats = _split_packed(
+                res.packed, len(names), recon.num_points)
+            recon.update_from_ba(cams_np, pts_np, names)
+            return {"cost_initial": float(stats[0]),
+                    "cost_final": float(stats[1]),
+                    "iterations": int(stats[2]),
+                    "mean_reproj_px": float(stats[3]),
+                    "sharded": world}
         return self._run_ba(recon, optimize_cams=None,
                             max_iters=self.config.global_ba_max_iters)
 
