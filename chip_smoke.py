@@ -479,14 +479,17 @@ def cuda_ms(torch, fn, reps=REPS):
     return t0.elapsed_time(t1) / reps
 
 
-def kernel_counts(pm, ps, psg):
-    return {"ori_desc": ps.ori_desc.launches, "knn2": pm.knn2_raw.launches,
-            "sgm": psg.sgm_aggregate_batch.launches}
+def kernel_counts():
+    """The three kernels' launches, from the port's counter registry."""
+    from tpu3drec_torch.utils.profiling import counters
+    c = counters()
+    return {name: c.get(f"{name}.launches", 0)
+            for name in ("ori_desc", "knn2", "sgm")}
 
 
-def reset_counts(pm, ps, psg):
-    ps.ori_desc.launches = pm.knn2_raw.launches = 0
-    psg.sgm_aggregate_batch.launches = 0
+def reset_counts():
+    from tpu3drec_torch.utils.profiling import reset_counters
+    reset_counters()
 
 
 def corner_error(Hest, Hgt, h, w):
@@ -1332,9 +1335,6 @@ def run_dense(torch, kind, dev):
     """Phase 4: the dense stage on the card; returns the sgm kernel line
     fields with this run's launches."""
     import tpu3drec_torch
-    from tpu3drec_torch.ops import pallas_match as pm
-    from tpu3drec_torch.ops import pallas_sample as ps
-    from tpu3drec_torch.ops import pallas_sgm as psg
     from tpu3drec_torch.ops import stereo as st
 
     sparse, images, ref = dense_folder(H, W, SEED + 7)
@@ -1350,11 +1350,11 @@ def run_dense(torch, kind, dev):
     runs = []
     for i in range(DENSE_REPS):
         if i == 0:
-            reset_counts(pm, ps, psg)
+            reset_counts()
         res = pipe.run_complete_pipeline(sparse, images, reference_view=ref)
         torch.cuda.synchronize()
         if i == 0:
-            counts = kernel_counts(pm, ps, psg)
+            counts = kernel_counts()
             fields["launches"] = counts["sgm"]
         runs.append(res["timings_s"])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1579,13 +1579,10 @@ def run_sfm(torch, card, dev):
     """Phase 5: SfM geometry and bundle adjustment on the card through the
     public functions, each against its bars and the CPU plain path."""
     import tpu3drec_torch as tv
-    from tpu3drec_torch.ops import pallas_match as pm
-    from tpu3drec_torch.ops import pallas_sample as ps
-    from tpu3drec_torch.ops import pallas_sgm as psg
     from tpu3drec_torch.ops.epipolar import gumbel_subsample
     from tpu3drec_torch.ops.ransac import draw_uniform
 
-    reset_counts(pm, ps, psg)
+    reset_counts()
     f32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
     K = f32(sfm_K())
 
@@ -1717,7 +1714,7 @@ def run_sfm(torch, card, dev):
     profile_call(torch, lambda: tv.bundle_adjust(prob, cfg), "sfm.", top=8)
     del prob, res
 
-    launches = kernel_counts(pm, ps, psg)
+    launches = kernel_counts()
     print(f"launches in the SfM phase: {launches} (no TPU kernel lies on "
           f"this path: the reference computes it in plain XLA)")
 
@@ -1878,16 +1875,13 @@ def run_pipeline(torch, card, dev):
     the card, against its bars, profiled on a 12-view cut, and held
     against the CPU plain path on the 5-view test scene."""
     from tpu3drec_torch.bench.synthetic import make_sfm_scene
-    from tpu3drec_torch.ops import pallas_match as pm
-    from tpu3drec_torch.ops import pallas_sample as ps
-    from tpu3drec_torch.ops import pallas_sgm as psg
     from tpu3drec_torch.sfm.quality import reprojection_errors
 
     t_phase = time.perf_counter()
     md, info, gt = make_sfm_scene(n_views=PIPE_VIEWS, n_pts=PIPE_POINTS)
-    reset_counts(pm, ps, psg)
+    reset_counts()
     pipe, recon, cold = sfm_pipeline_run(torch, md, info, dev)
-    launches = kernel_counts(pm, ps, psg)
+    launches = kernel_counts()
     print(f"launches in the SfM pipeline run: {launches} (no TPU kernel "
           f"lies on this path: the reference computes it in plain XLA)")
     if any(launches.values()):
@@ -2156,7 +2150,6 @@ def run_folder(torch, card, dev, tmp, names, Rs):
     from tpu3drec_torch.ops import match as mt
     from tpu3drec_torch.ops import pallas_match as pm
     from tpu3drec_torch.ops import pallas_sample as ps
-    from tpu3drec_torch.ops import pallas_sgm as psg
     from tpu3drec_torch.ops.sift import N_LAYERS
     from tpu3drec_torch.sfm import SfMPipeline
 
@@ -2175,9 +2168,9 @@ def run_folder(torch, card, dev, tmp, names, Rs):
     # the kernels' inputs as the path hands them
     calls, knn2_ops, octaves, restore = spy_kernel_inputs(mt, ps)
     try:
-        reset_counts(pm, ps, psg)
+        reset_counts()
         res, cold = folder_chain(torch, folder, os.path.join(tmp, "cold"), dev)
-        launches = kernel_counts(pm, ps, psg)
+        launches = kernel_counts()
     finally:
         restore()
     by_metric = {FOLDER_METRIC_BY_DEPTH.get(d, d): n
@@ -2513,7 +2506,6 @@ def run_folder_accurate(torch, card, dev, tmp, names, Rs):
     from tpu3drec_torch.ops import match as mt
     from tpu3drec_torch.ops import pallas_match as pm
     from tpu3drec_torch.ops import pallas_sample as ps
-    from tpu3drec_torch.ops import pallas_sgm as psg
     from tpu3drec_torch.ops.sift import N_LAYERS, detect_sift_features
 
     t_phase = time.perf_counter()
@@ -2530,10 +2522,10 @@ def run_folder_accurate(torch, card, dev, tmp, names, Rs):
 
     calls, knn2_ops, octaves, restore = spy_kernel_inputs(mt, ps)
     try:
-        reset_counts(pm, ps, psg)
+        reset_counts()
         res, cold = folder_chain(torch, folder, os.path.join(tmp, "acc_cold"),
                                  dev, preset=ACC_PRESET)
-        launches = kernel_counts(pm, ps, psg)
+        launches = kernel_counts()
     finally:
         restore()
     by_method = {ACC_DEPTH_METHOD.get(d, d): n for d, n in sorted(calls.items())}
@@ -2882,8 +2874,6 @@ def run_dense_rest(torch, card, dev, sparse, images):
     against the CPU plain path on the card's own cloud."""
     import tpu3drec_torch.pipelines.dense as pdense
     from tpu3drec_torch.ops import implicit as imp
-    from tpu3drec_torch.ops import pallas_match as pm
-    from tpu3drec_torch.ops import pallas_sample as ps
     from tpu3drec_torch.ops import pallas_sgm as psg
     from tpu3drec_torch.ops import pointcloud as pc
     from tpu3drec_torch.ops import stereo as st
@@ -2893,10 +2883,10 @@ def run_dense_rest(torch, card, dev, sparse, images):
     launches = {}
 
     def counted(label, fn):
-        reset_counts(pm, ps, psg)
+        reset_counts()
         out = fn()
         torch.cuda.synchronize()
-        launches[label] = kernel_counts(pm, ps, psg)["sgm"]
+        launches[label] = kernel_counts()["sgm"]
         return out
 
     # ---- each implicit mesh method on every view
@@ -3332,22 +3322,20 @@ def deep_folder_engine(torch, card, dev, tmp, names):
     from tpu3drec_torch.api import _get_detector_registry
     from tpu3drec_torch.io.images import FolderImageSource
     from tpu3drec_torch.ops import match as mt
-    from tpu3drec_torch.ops import pallas_match as pm
     from tpu3drec_torch.ops import pallas_sample as ps
-    from tpu3drec_torch.ops import pallas_sgm as psg
     folder = os.path.join(tmp, "imgs")
     pipe = tv.create_pipeline(DEEP_PRESET, device=dev)
     if pipe.methods != ["SuperPoint", "DISK"]:
         fail(f"deep_learning preset: methods {pipe.methods}")
     calls, ops, _, restore = spy_kernel_inputs(mt, ps)
     try:
-        reset_counts(pm, ps, psg)
+        reset_counts()
         t0 = time.perf_counter()
         cold = pipe.match_folder(folder, os.path.join(tmp, "deep_cold"),
                                  resume=False)
         torch.cuda.synchronize()
         cold_s = time.perf_counter() - t0
-        launches = kernel_counts(pm, ps, psg)["knn2"]
+        launches = kernel_counts()["knn2"]
     finally:
         restore()
     by_method = {DEEP_DEPTH_METHOD.get(d, d): n for d, n in sorted(calls.items())}
@@ -3600,7 +3588,7 @@ def cli_auto(torch, dev, tmp, folder, here, pm, ps, psg):
     import io
     from tpu3drec_torch import cli
     buf = io.StringIO()
-    reset_counts(pm, ps, psg)
+    reset_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["auto", folder, os.path.join(tmp, "auto_in"),
@@ -3608,7 +3596,7 @@ def cli_auto(torch, dev, tmp, folder, here, pm, ps, psg):
     if dev.type == "cuda":
         torch.cuda.synchronize()
     in_s = time.perf_counter() - t0
-    launches = kernel_counts(pm, ps, psg)
+    launches = kernel_counts()
     out = last_json(buf.getvalue())
     print(f"cli auto --dense in process: rc {rc}, {out['cameras']} cameras, "
           f"{out['points']} points, {in_s:.2f} s; launches {launches}")
@@ -3879,7 +3867,7 @@ def serve_phase(torch, card, dev, tmp, pairs, Hgt, pm, ps, psg):
             {"image1": png64(i, 1, a) if b64[i] else a.tolist(),
              "image2": png64(i, 2, b) if b64[i] else b.tolist(),
              "method": "SIFT"}).encode() for i, (a, b) in enumerate(u8)]
-        reset_counts(pm, ps, psg)
+        reset_counts()
         _, before = get_json(url + "/health")
         lat = [None] * SERVE_REQUESTS
 
@@ -3897,7 +3885,7 @@ def serve_phase(torch, card, dev, tmp, pairs, Hgt, pm, ps, psg):
         finally:
             del ms.batcher._compute
         wall = time.perf_counter() - t0
-        launches = kernel_counts(pm, ps, psg)
+        launches = kernel_counts()
         _, health = get_json(url + "/health")
         codes = [c for c, _ in answers]
         if any(c != 200 for c in codes):
@@ -4019,15 +4007,15 @@ def bench_phase(torch, card, dev, tmp, pm, ps, psg):
     task_run = runner.ThroughputTask.run
 
     def spy(self, pairs):
-        before = pm.knn2_raw.launches
+        before = kernel_counts()["knn2"]
         try:
             return task_run(self, pairs)
         finally:
-            thr_launches["knn2"] = pm.knn2_raw.launches - before
+            thr_launches["knn2"] = kernel_counts()["knn2"] - before
 
     out_dir = os.path.join(tmp, "bench")
     buf = io.StringIO()
-    reset_counts(pm, ps, psg)
+    reset_counts()
     runner.ThroughputTask.run = spy
     t0 = time.perf_counter()
     try:
@@ -4038,7 +4026,7 @@ def bench_phase(torch, card, dev, tmp, pm, ps, psg):
     finally:
         runner.ThroughputTask.run = task_run
     secs = time.perf_counter() - t0
-    launches = kernel_counts(pm, ps, psg)
+    launches = kernel_counts()
     files = sorted(f for f in os.listdir(out_dir) if f.endswith(".json"))
     if rc != 0 or len(files) != 1:
         fail(f"cli benchmark: rc {rc}, files {files}")
@@ -4290,8 +4278,6 @@ def rank_full_width(torch, dev, tmp):
     )
     from tpu3drec_torch.ops import match as mt
     from tpu3drec_torch.ops import pallas_match as pm
-    from tpu3drec_torch.ops import pallas_sample as ps
-    from tpu3drec_torch.ops import pallas_sgm as psg
     from tpu3drec_torch.parallel.ba import sharded_bundle_adjust
     from tpu3drec_torch.parallel.dense import sharded_pairwise_stereo
     from tpu3drec_torch.parallel.mesh import make_mesh
@@ -4309,10 +4295,10 @@ def rank_full_width(torch, dev, tmp):
     u = pair_uniforms(torch, B, NUM_HYPOTHESES, dev)
     detect = sift_detect_fn(MAX_FEATURES)
     step = make_batched_pair_step(mesh, detect, num_hypotheses=NUM_HYPOTHESES)
-    reset_counts(pm, ps, psg)
+    reset_counts()
     got = step(img1, img2, u)
     sync()
-    n = kernel_counts(pm, ps, psg)
+    n = kernel_counts()
     out["launches"]["sharded_pair_step"] = n
     if not (n["ori_desc"] and n["knn2"]):
         fail(f"the sharded pair step did not launch ori_desc and knn2: {n}")
@@ -4369,10 +4355,10 @@ def rank_full_width(torch, dev, tmp):
     neigh, K_ref = stereo_neighbours(sparse, images, ref_name)
     run = lambda: sharded_pairwise_stereo(mesh, images[ref_name], neigh,
                                           K_ref, NUM_DISPARITIES, device=dev)
-    reset_counts(pm, ps, psg)
+    reset_counts()
     outs = run()
     sync()
-    out["launches"]["sharded_stereo"] = kernel_counts(pm, ps, psg)
+    out["launches"]["sharded_stereo"] = kernel_counts()
     if not out["launches"]["sharded_stereo"]["sgm"]:
         fail("the sharded stereo never launched the sgm kernel")
     t0 = time.perf_counter()
@@ -4389,13 +4375,13 @@ def rank_full_width(torch, dev, tmp):
               batch_size=FOLDER_BATCH)
     pipe = tv.create_pipeline("balanced", device=dev)
     raw = raw_match_counts(pipe)
-    reset_counts(pm, ps, psg)
+    reset_counts()
     t0 = time.perf_counter()
     summary = match_folder_sharded(folder, os.path.join(tmp, "par_sharded"),
                                    1, 0, pipeline=pipe, **kw)
     sync()
     out["folder_s"] = time.perf_counter() - t0
-    n = kernel_counts(pm, ps, psg)
+    n = kernel_counts()
     out["launches"]["match_folder_sharded"] = n
     if not (n["ori_desc"] and n["knn2"]):
         fail(f"the sharded folder run did not launch ori_desc and knn2: {n}")
@@ -4427,9 +4413,6 @@ def rank_small(torch, dev, tmp):
     tests' bars; returns what the ranks must agree on."""
     import torch.distributed as dist
     import tpu3drec_torch as tv
-    from tpu3drec_torch.ops import pallas_match as pm
-    from tpu3drec_torch.ops import pallas_sample as ps
-    from tpu3drec_torch.ops import pallas_sgm as psg
     from tpu3drec_torch.ops.match import knn2
     from tpu3drec_torch.parallel.ba import sharded_bundle_adjust
     from tpu3drec_torch.parallel.dense import sharded_pairwise_stereo
@@ -4451,10 +4434,10 @@ def rank_small(torch, dev, tmp):
     u = pair_uniforms(torch, PAR_PAIRS, PAR_HYPOTHESES, dev)
     detect = sift_detect_fn(PAR_FEATURES)
     step = make_batched_pair_step(tp_mesh, detect, num_hypotheses=PAR_HYPOTHESES)
-    reset_counts(pm, ps, psg)
+    reset_counts()
     st = step(img1, img2, u)
     sync()
-    n = kernel_counts(pm, ps, psg)
+    n = kernel_counts()
     out["launches"]["tp_knn2"] = n
     if not (n["ori_desc"] and n["knn2"]):
         fail(f"rank {rank}: the (1, 2) pair step did not launch ori_desc "
@@ -4477,11 +4460,11 @@ def rank_small(torch, dev, tmp):
     m1, m2 = rng.random(N) > 0.1, rng.random(M) > 0.1
     rows = slice(rank * N // world, (rank + 1) * N // world)
     cols = slice(rank * M // world, (rank + 1) * M // world)
-    reset_counts(pm, ps, psg)
+    reset_counts()
     idx, dist_ = ring_knn2(t_(d1[rows]), t_(d2[cols]), t_(m1[rows]),
                            t_(m2[cols]), tp_mesh.get_group("tp"))
     sync()
-    out["launches"]["ring_knn2"] = kernel_counts(pm, ps, psg)
+    out["launches"]["ring_knn2"] = kernel_counts()
     if not out["launches"]["ring_knn2"]["knn2"]:
         fail(f"rank {rank}: ring_knn2 never launched knn2")
     ridx, rdist = knn2(t_(d1), t_(d2), t_(m1), t_(m2), metric="l2")
@@ -4517,11 +4500,11 @@ def rank_small(torch, dev, tmp):
     # the dense pipeline's sharded branch on the same folder
     sparse, images = small_stereo_folder()
     neigh, K_ref = stereo_neighbours(sparse, images, "v0.png")
-    reset_counts(pm, ps, psg)
+    reset_counts()
     outs = sharded_pairwise_stereo(dp_mesh, images["v0.png"], neigh, K_ref,
                                    PAR_STEREO_DISPARITIES, device=dev)
     sync()
-    out["launches"]["sharded_stereo"] = kernel_counts(pm, ps, psg)
+    out["launches"]["sharded_stereo"] = kernel_counts()
     if not out["launches"]["sharded_stereo"]["sgm"]:
         fail(f"rank {rank}: the sharded stereo never launched sgm")
     check_stereo_per_pair(torch, outs, neigh, images["v0.png"], K_ref,
@@ -4727,9 +4710,6 @@ def main():
         fail("torch.cuda.is_available() is False")
     import tpu3drec_torch
     from tpu3drec_torch import _nvcc
-    from tpu3drec_torch.ops import pallas_match as pm
-    from tpu3drec_torch.ops import pallas_sample as ps
-    from tpu3drec_torch.ops import pallas_sgm as psg
     from tpu3drec_torch.ops.sift import detect_and_compute, octave_samples
 
     # ---- 1. card and build
@@ -4772,10 +4752,10 @@ def main():
     # ---- 3. the main path at full size
     pair_fn = tpu3drec_torch.make_pair_fn(max_features=MAX_FEATURES,
                                           num_hypotheses=NUM_HYPOTHESES)
-    reset_counts(pm, ps, psg)
+    reset_counts()
     out = pair_fn(img1, img2)
     torch.cuda.synchronize()
-    launches = {k: n for k, n in kernel_counts(pm, ps, psg).items()
+    launches = {k: n for k, n in kernel_counts().items()
                 if k != "sgm"}
     print(f"launches in one pair-step call: {launches}")
     for name, n in launches.items():

@@ -36,12 +36,12 @@ import math
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from tpu3drec_torch.core.types import DescriptorKind, Features
 from tpu3drec_torch.ops.harris import merge_top_k, nms_2d, select_top_k
 from tpu3drec_torch.ops.image import central_gradients, gaussian_blur, resize
 from tpu3drec_torch.ops.sift import _bilinear_many, _patch_offsets
+from tpu3drec_torch.utils.profiling import span
 
 N_SUBLEVELS = 4
 SIGMA0 = 1.6       # base scale (KAZE sigma0)
@@ -197,13 +197,13 @@ def detect_and_compute(imgs: torch.Tensor, max_features: int = 2048,
     single = imgs.ndim == 2
     if single:
         imgs = imgs[None]
-    with record_function("akaze.scale_space"):
+    with span("akaze.scale_space"):
         k2 = _contrast_k2(imgs)
         levels = evolve_scale_space(imgs, k2, n_octaves)
-    with record_function("akaze.levels"):
+    with span("akaze.levels"):
         parts = [_level_features(o, sigma, L, max_features, threshold)
                  for (o, _, sigma, L) in levels]
-    with record_function("akaze.merge"):
+    with span("akaze.merge"):
         return merge_top_k(parts, max_features, single)
 
 

@@ -20,6 +20,8 @@ import math
 import numpy as np
 import torch
 
+from tpu3drec_torch.utils.profiling import upload
+
 # ITU-R BT.601 luma weights — same as cv2.cvtColor(BGR2GRAY)/(RGB2GRAY)
 _LUMA = np.array([0.299, 0.587, 0.114], np.float32)
 
@@ -75,10 +77,10 @@ def resize(img: torch.Tensor, shape) -> torch.Tensor:
     h, w = shape
     out = img
     if h != img.shape[-2]:
-        wh = torch.tensor(_resize_weights(img.shape[-2], h), device=img.device)
+        wh = upload(_resize_weights(img.shape[-2], h), img.device)
         out = torch.matmul(wh.T, out)
     if w != img.shape[-1]:
-        ww = torch.tensor(_resize_weights(img.shape[-1], w), device=img.device)
+        ww = upload(_resize_weights(img.shape[-1], w), img.device)
         out = torch.matmul(out, ww)
     return out
 
@@ -135,8 +137,8 @@ def _band_matrix(n: int, sigma: float, radius: int = None) -> np.ndarray:
 
 
 def band_matrix(n: int, sigma: float, device) -> torch.Tensor:
-    """`_band_matrix` as a float32 tensor on `device`."""
-    return torch.tensor(_band_matrix(n, float(sigma)), device=device)
+    """`_band_matrix` as a float32 tensor on `device` (a counted upload)."""
+    return upload(_band_matrix(n, float(sigma)), device)
 
 
 def gaussian_blur_matmul(img: torch.Tensor, sigma: float) -> torch.Tensor:

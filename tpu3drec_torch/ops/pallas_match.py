@@ -30,6 +30,8 @@ import functools
 
 import torch
 
+from tpu3drec_torch.utils.profiling import count, recording, span
+
 INT_BIG = 2 ** 31 - 1
 F32_BIG = 3.4e38
 
@@ -185,18 +187,39 @@ def _launch(a, b, bnorm, mask2):
     return idx, val
 
 
+def _count_work(a: torch.Tensor, b: torch.Tensor, mask2: torch.Tensor
+               ) -> None:
+    """Counts one launch's work while a profiler records, with the valid
+    columns summed on the device: `knn2.macs.int8` or `knn2.macs.f32`,
+    rows x valid columns x depth, and `knn2.bytes`, the least bytes it
+    moves (A, each valid column of B with its 4-byte norm and the mask
+    read once, the top-2 indices and values written once)."""
+    B, N, D = a.shape
+    M = b.shape[1]
+    size = a.element_size()
+    valid = mask2.sum()                    # one reduction, no sync
+    kind = "int8" if a.dtype == torch.int8 else "f32"
+    count(f"knn2.macs.{kind}", valid, per=N * D)
+    count("knn2.bytes", valid, per=D * size + 4,
+          plus=B * N * D * size + B * M + B * N * 16)
+
+
 def knn2_raw(a: torch.Tensor, b: torch.Tensor, bnorm: torch.Tensor,
              mask2: torch.Tensor):
     """Top-2 of `bnorm - 2 a.b` per row: (idx (B, N, 2) int32, raw
-    values (B, N, 2) int32 for int8 input, float32 for float32 input)."""
+    values (B, N, 2) int32 for int8 input, float32 for float32 input).
+
+    The route runs under the span `knn2.kernel`; while a profiler
+    records, `_count_work` counts its work outside that span. The counter
+    `knn2.launches` counts the kernel's launches."""
     _check(a, b, bnorm, mask2)
-    if a.device.type == "cpu":
-        return knn2_plain(a, b, bnorm, mask2)
-    if a.device.type != "cuda":
+    if a.device.type not in ("cpu", "cuda"):
         raise ValueError(f"knn2: unsupported device {a.device}")
-    out = _launch(a, b, bnorm, mask2)
-    knn2_raw.launches += 1
+    if recording():
+        _count_work(a, b, mask2)
+    with span("knn2.kernel"):
+        if a.device.type == "cpu":
+            return knn2_plain(a, b, bnorm, mask2)
+        out = _launch(a, b, bnorm, mask2)
+    count("knn2.launches")
     return out
-
-
-knn2_raw.launches = 0

@@ -47,6 +47,7 @@ from tpu3drec_torch.ops.sift import (
     DESC_B, DESC_D, DESC_MAG_THR, DESC_SCL_FCTR, ORI_BINS, ORI_RADIUS_FCTR,
     ORI_SIG_FCTR, _OBIN_REV,
 )
+from tpu3drec_torch.utils.profiling import count, upload
 
 WIN_H = 96     # window rows the core and the band are cut from
 CORE_H = 88    # descriptor core rows
@@ -344,7 +345,7 @@ def launch_kernel(dxs, dys, meta, hp: int, fb: int, angle, raw, work=None,
             0 if boxes_out is None else boxes_out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"ori_desc kernel launch failed: CUDA error {err}")
-    ori_desc.launches += 1
+    count("ori_desc.launches")
 
 
 def _launch(dxs, dys, meta, hp: int, fb: int):
@@ -373,7 +374,8 @@ def ori_desc(dxs: torch.Tensor, dys: torch.Tensor, meta: torch.Tensor,
     On the card the kernel is bound by its arithmetic (an atan2, a sqrt
     and two exp per support pixel, eight orientation tents per
     descriptor pixel), not by bytes: it reads each slot's support box
-    once, mostly from L2. `ori_desc.launches` counts kernel launches."""
+    once, mostly from L2. The counter `ori_desc.launches`
+    (`utils/profiling.py:counters`) counts kernel launches."""
     _check(dxs, dys, meta, hp, fb)
     if dxs.device.type == "cpu":
         return ori_desc_plain(dxs, dys, meta, hp, fb)
@@ -382,14 +384,11 @@ def ori_desc(dxs: torch.Tensor, dys: torch.Tensor, meta: torch.Tensor,
     return _launch(dxs, dys, meta, hp, fb)
 
 
-ori_desc.launches = 0
-
-
 def normalize_descriptors(raw: torch.Tensor) -> torch.Tensor:
     """(K, 16, 8) raw -> (K, 128): cv2 orientation-bin order, unit norm,
     clip at 0.2, renormalise to 512."""
     K = raw.shape[0]
-    desc = raw[:, :, torch.as_tensor(_OBIN_REV, device=raw.device)].reshape(K, -1)
+    desc = raw[:, :, upload(_OBIN_REV, raw.device)].reshape(K, -1)
     norm = torch.linalg.vector_norm(desc, dim=1, keepdim=True)
     desc = desc / torch.clamp(norm, min=1e-12)
     desc = torch.clamp(desc, max=DESC_MAG_THR)

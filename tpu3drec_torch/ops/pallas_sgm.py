@@ -31,6 +31,8 @@ import ctypes
 
 import torch
 
+from tpu3drec_torch.utils.profiling import count
+
 MAX_DISPARITIES = 128   # csrc/sgm.cu: D <= 32 x MAX_NPL registers a lane
 
 
@@ -83,7 +85,7 @@ def sgm_aggregate_batch_kernel(volumes: torch.Tensor, p1x100: int = 15,
                                p2x100: int = 90) -> torch.Tensor:
     """The kernel's route for contiguous (B, D, H, W) float32 CUDA
     volumes: one call of the kernel library (the vertical, then the
-    horizontal kernel), counted once on `sgm_aggregate_batch.launches`."""
+    horizontal kernel), counted once on the counter `sgm.launches`."""
     if volumes.device.type != "cuda" or not volumes.is_contiguous():
         raise ValueError("sgm: the kernel takes a contiguous CUDA tensor")
     from tpu3drec_torch._nvcc import load
@@ -99,7 +101,7 @@ def sgm_aggregate_batch_kernel(volumes: torch.Tensor, p1x100: int = 15,
                  H, W, int(p1x100), int(p2x100), stream)
     if err != 0:
         raise RuntimeError(f"sgm kernel launch failed: CUDA error {err}")
-    sgm_aggregate_batch.launches += 1
+    count("sgm.launches")
     return out
 
 
@@ -113,6 +115,3 @@ def sgm_aggregate_batch(volumes: torch.Tensor, p1x100: int = 15,
     if volumes.device.type != "cuda":
         raise ValueError(f"sgm: unsupported device {volumes.device}")
     return sgm_aggregate_batch_kernel(volumes, p1x100, p2x100)
-
-
-sgm_aggregate_batch.launches = 0

@@ -20,6 +20,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from tpu3drec_torch.utils.profiling import upload
+
 _U_HIGH = 2 ** 31 - 1
 
 
@@ -102,7 +104,10 @@ def ransac(pts1: torch.Tensor, pts2: torch.Tensor, mask: torch.Tensor, *,
         models = models.reshape((B, K * models_per_sample) + models.shape[3:])
         valid = valid.reshape(B, K * models_per_sample)
     res = residual_fn(models, pts1, pts2)                     # (B, K*R, N)
-    thr2 = torch.as_tensor(threshold, dtype=torch.float32).to(res.device) ** 2
+    if isinstance(threshold, torch.Tensor):
+        thr2 = threshold.to(device=res.device, dtype=torch.float32) ** 2
+    else:
+        thr2 = upload(threshold, res.device, torch.float32) ** 2
     if thr2.ndim:
         thr2 = thr2[:, None, None]
     inl = (res <= thr2) & mask[:, None, :]

@@ -31,6 +31,7 @@ from tpu3drec_torch.core.types import DescriptorKind, Features
 from tpu3drec_torch.ops.image import (
     band_matrix, downsample2, gaussian_blur_matmul, resize,
 )
+from tpu3drec_torch.utils.profiling import span, upload
 
 # ---------------------------------------------------------------------
 # constants (OpenCV defaults)
@@ -77,7 +78,7 @@ def _patch_offsets_np(n: int) -> np.ndarray:
 
 
 def _patch_offsets(n: int, device=None) -> torch.Tensor:
-    return torch.from_numpy(_patch_offsets_np(n)).to(device)
+    return upload(_patch_offsets_np(n), device)
 
 
 def _static_desc_bins():
@@ -216,8 +217,9 @@ def _descriptor_from_samples(gx: torch.Tensor, gy: torch.Tensor,
     oh0 = F.one_hot(b0, DESC_B).to(mag.dtype)
     oh1 = F.one_hot((b0 + 1) % DESC_B, DESC_B).to(mag.dtype)
     t = mag[..., None] * (oh0 * (1 - f)[..., None] + oh1 * f[..., None])
-    rc = torch.from_numpy(_DESC_RC).to(mag.device)
-    desc = torch.einsum("...po,pg->...go", t, rc)[..., _OBIN_REV]
+    rc = upload(_DESC_RC, mag.device)
+    desc = torch.einsum("...po,pg->...go", t, rc)[
+        ..., upload(_OBIN_REV, mag.device)]
     desc = desc.reshape(*mag.shape[:-1], -1)
     norm = torch.linalg.vector_norm(desc, dim=-1, keepdim=True)
     desc = desc / torch.clamp(norm, min=1e-12)
@@ -230,8 +232,8 @@ def _rotated_desc_grid(x: torch.Tensor, y: torch.Tensor, angle: torch.Tensor,
                        scl: torch.Tensor):
     """(..., 144) sample coordinates of the rotated descriptor grid
     around (x, y) `(...)` at scale `scl`."""
-    ox = torch.from_numpy(_DESC_OX).to(x.device)
-    oy = torch.from_numpy(_DESC_OY).to(x.device)
+    ox = upload(_DESC_OX, x.device)
+    oy = upload(_DESC_OY, x.device)
     ca, sa = torch.cos(angle)[..., None], torch.sin(angle)[..., None]
     px = x[..., None] + (ca * ox - sa * oy) * scl[..., None]
     py = y[..., None] + (sa * ox + ca * oy) * scl[..., None]
@@ -275,8 +277,8 @@ def _refine_candidates(dog: torch.Tensor, sel_s, sel_y, sel_x,
     B, s, h, w = dog.shape
     flat = dog.reshape(B, -1)
     base = sel_s * (h * w) + sel_y * w + sel_x
-    offs = torch.tensor([ds * (h * w) + dy * w + dx for ds, dy, dx in _STENCIL],
-                        device=dog.device)
+    offs = upload([ds * (h * w) + dy * w + dx for ds, dy, dx in _STENCIL],
+                  dog.device)
     idx = (base[..., None] + offs).clamp(0, s * h * w - 1)
     taps = flat.gather(1, idx.reshape(B, -1)).reshape(*base.shape, len(_STENCIL))
     (v, v_sp, v_sm, v_yp, v_ym, v_xp, v_xm,
@@ -331,7 +333,8 @@ class OctaveSample:
     xs, ys, contrast, scl, keep: (B, C) in octave pixels; layer: (B, C)
     int32 gradient level (1..N_LAYERS) of each slot; dxs, dys: (B*S, h, w)
     bf16 gradient stacks; meta: (B*C, 4) int32 (`prep_meta`); hp, fb:
-    padded height and fraction bits of this octave's shape."""
+    padded height and fraction bits of this octave's shape; last: whether
+    it is the last octave."""
 
     octave: int
     xs: torch.Tensor
@@ -345,6 +348,7 @@ class OctaveSample:
     meta: torch.Tensor
     hp: int
     fb: int
+    last: bool
 
 
 def octave_samples(imgs: torch.Tensor, max_features: int = 2048,
@@ -356,70 +360,88 @@ def octave_samples(imgs: torch.Tensor, max_features: int = 2048,
     Yields each octave's candidates together with the exact inputs of its
     `ori_desc` call, so the detector and kernel checks share one path.
     With `upscale`, the scale space is built on the image doubled by JAX's
-    linear resize, from a base blur that assumes twice INIT_SIGMA."""
+    linear resize, from a base blur that assumes twice INIT_SIGMA.
+
+    Each octave's work runs under the spans `sift.blur` (the base blur or
+    the decimation, then the pyramid), `sift.extrema` and `sift.refine`;
+    none stays open across the `yield`."""
     from tpu3drec_torch.ops.pallas_sample import frac_bits, pad_dims, prep_meta
 
-    if upscale:
-        imgs = resize(imgs, (imgs.shape[-2] * 2, imgs.shape[-1] * 2))
     B, h0, w0 = imgs.shape
+    if upscale:
+        h0, w0 = 2 * h0, 2 * w0
     dev = imgs.device
     n_oct = num_octaves(h0, w0)
     init = 2 * INIT_SIGMA if upscale else INIT_SIGMA
     sig_diff = math.sqrt(max(SIGMA0 ** 2 - init ** 2, 0.01))
-    cur = gaussian_blur_matmul(imgs, sig_diff)
     for o in range(n_oct):
-        gauss = _gaussian_pyramid(cur)                  # (B, S, h, w)
+        with span("sift.blur"):
+            if o == 0:
+                if upscale:
+                    imgs = resize(imgs, (h0, w0))
+                cur = gaussian_blur_matmul(imgs, sig_diff)
+            else:
+                cur = downsample2(gauss[:, N_LAYERS])
+            gauss = _gaussian_pyramid(cur)              # (B, S, h, w)
         S, hh, wh = gauss.shape[1:]
-        dog = gauss[:, 1:] - gauss[:, :-1]
-        ext = _dog_extrema_mask(dog, contrast_threshold)
+        with span("sift.extrema"):
+            dog = gauss[:, 1:] - gauss[:, :-1]
+            ext = _dog_extrema_mask(dog, contrast_threshold)
 
-        # per-octave candidate budget; the global top-K keeps
-        # max_features across octaves afterwards
-        cap = max(128, (max_features * 5 // 8) >> o)
-        score = torch.where(ext, dog.abs(), torch.zeros_like(dog)).reshape(B, -1)
-        k_cap = min(cap, score.shape[1])
-        vals, idx = torch.topk(score, k_cap, dim=1)
-        cand_ok = vals > 0.0
-        sel_s = idx // (hh * wh)
-        rem = idx % (hh * wh)
-        sel_y = rem // wh
-        sel_x = rem % wh
+            # per-octave candidate budget; the global top-K keeps
+            # max_features across octaves afterwards
+            cap = max(128, (max_features * 5 // 8) >> o)
+            score = torch.where(ext, dog.abs(),
+                                torch.zeros_like(dog)).reshape(B, -1)
+            k_cap = min(cap, score.shape[1])
+            vals, idx = torch.topk(score, k_cap, dim=1)
+            cand_ok = vals > 0.0
+            sel_s = idx // (hh * wh)
+            rem = idx % (hh * wh)
+            sel_y = rem // wh
+            sel_x = rem % wh
 
-        xs, ys, ls, contrast, keep = _refine_candidates(
-            dog, sel_s, sel_y, sel_x, contrast_threshold, edge_threshold)
-        keep &= cand_ok
-        scl = SIGMA0 * torch.exp2(ls / N_LAYERS)
-        layer = torch.clamp(torch.round(ls).to(torch.int32), 1, N_LAYERS)
-        # central differences with zero borders
-        dx_stack = F.pad(0.5 * (gauss[..., :, 2:] - gauss[..., :, :-2]), (1, 1))
-        dy_stack = F.pad(0.5 * (gauss[..., 2:, :] - gauss[..., :-2, :]),
-                         (0, 0, 1, 1))
+        with span("sift.refine"):
+            xs, ys, ls, contrast, keep = _refine_candidates(
+                dog, sel_s, sel_y, sel_x, contrast_threshold, edge_threshold)
+            keep &= cand_ok
+            scl = SIGMA0 * torch.exp2(ls / N_LAYERS)
+            layer = torch.clamp(torch.round(ls).to(torch.int32), 1, N_LAYERS)
+            # central differences with zero borders
+            dx_stack = F.pad(0.5 * (gauss[..., :, 2:] - gauss[..., :, :-2]),
+                             (1, 1))
+            dy_stack = F.pad(0.5 * (gauss[..., 2:, :] - gauss[..., :-2, :]),
+                             (0, 0, 1, 1))
 
-        # reject keypoints whose descriptor support is mostly off-image
-        rdesc = DESC_SCL_FCTR * (DESC_D + 1) * 0.5 * math.sqrt(2.0) * scl
-        keep &= ((torch.minimum(xs, wh - 1 - xs) >= 0.45 * rdesc)
-                 & (torch.minimum(ys, hh - 1 - ys) >= 0.45 * rdesc))
+            # reject keypoints whose descriptor support is mostly off-image
+            rdesc = DESC_SCL_FCTR * (DESC_D + 1) * 0.5 * math.sqrt(2.0) * scl
+            keep &= ((torch.minimum(xs, wh - 1 - xs) >= 0.45 * rdesc)
+                     & (torch.minimum(ys, hh - 1 - ys) >= 0.45 * rdesc))
 
-        # compact: keep the strongest half of the slots by refined contrast
-        cap_c = max(64, k_cap // 2)
-        if cap_c < k_cap:
-            cscore = torch.where(keep, contrast.abs(), torch.zeros_like(contrast))
-            cval, cidx = torch.topk(cscore, cap_c, dim=1)
-            keep = keep.gather(1, cidx) & (cval > 0.0)
-            xs, ys, ls, contrast, scl, layer = (
-                t.gather(1, cidx) for t in (xs, ys, ls, contrast, scl, layer))
+            # compact: keep the strongest half of the slots by refined
+            # contrast
+            cap_c = max(64, k_cap // 2)
+            if cap_c < k_cap:
+                cscore = torch.where(keep, contrast.abs(),
+                                     torch.zeros_like(contrast))
+                cval, cidx = torch.topk(cscore, cap_c, dim=1)
+                keep = keep.gather(1, cidx) & (cval > 0.0)
+                xs, ys, ls, contrast, scl, layer = (
+                    t.gather(1, cidx)
+                    for t in (xs, ys, ls, contrast, scl, layer))
 
-        hp, wp = pad_dims(hh, wh)
-        glayer = layer + (torch.arange(B, device=dev, dtype=torch.int32) * S)[:, None]
-        meta = prep_meta(xs.reshape(-1), ys.reshape(-1), glayer.reshape(-1),
-                         scl.reshape(-1), keep.reshape(-1), hp, wp)
+            hp, wp = pad_dims(hh, wh)
+            glayer = layer + (torch.arange(B, device=dev, dtype=torch.int32)
+                              * S)[:, None]
+            meta = prep_meta(xs.reshape(-1), ys.reshape(-1),
+                             glayer.reshape(-1), scl.reshape(-1),
+                             keep.reshape(-1), hp, wp)
+            dxs = dx_stack.to(torch.bfloat16).reshape(B * S, hh, wh)
+            dys = dy_stack.to(torch.bfloat16).reshape(B * S, hh, wh)
         yield OctaveSample(
             octave=o, xs=xs, ys=ys, contrast=contrast, scl=scl, keep=keep,
-            layer=layer, dxs=dx_stack.to(torch.bfloat16).reshape(B * S, hh, wh),
-            dys=dy_stack.to(torch.bfloat16).reshape(B * S, hh, wh),
-            meta=meta, hp=hp, fb=frac_bits(hp, wp))
-        if o + 1 < n_oct:
-            cur = downsample2(gauss[:, N_LAYERS])
+            layer=layer, dxs=dxs, dys=dys, meta=meta, hp=hp,
+            fb=frac_bits(hp, wp), last=o + 1 == n_oct)
 
 
 def _gather_ori_desc(oc: OctaveSample):
@@ -462,22 +484,35 @@ def detect_and_compute(imgs: torch.Tensor, max_features: int = 2048,
     parts = []
     for oc in octave_samples(imgs, max_features, contrast_threshold,
                              edge_threshold, upscale):
-        if sampler == "xla":
-            angle, desc = _gather_ori_desc(oc)
-        else:
-            angle, desc = ori_desc_windows(oc.dxs, oc.dys, oc.meta, oc.hp,
-                                           oc.fb)
-        factor = (2.0 ** oc.octave) * (0.5 if upscale else 1.0)
-        parts.append(dict(
-            xy=torch.stack([oc.xs * factor, oc.ys * factor], dim=-1),
-            response=oc.contrast.abs(),
-            scale=oc.scl * factor * 2.0,
-            angle=angle.reshape(B, -1),
-            desc=desc.reshape(B, -1, desc.shape[-1]),
-            mask=oc.keep,
-        ))
+        with span("sift.ori_desc"):
+            if sampler == "xla":
+                angle, desc = _gather_ori_desc(oc)
+            else:
+                angle, desc = ori_desc_windows(oc.dxs, oc.dys, oc.meta,
+                                               oc.hp, oc.fb)
+        with span("sift.select"):
+            factor = (2.0 ** oc.octave) * (0.5 if upscale else 1.0)
+            parts.append(dict(
+                xy=torch.stack([oc.xs * factor, oc.ys * factor], dim=-1),
+                response=oc.contrast.abs(),
+                scale=oc.scl * factor * 2.0,
+                angle=angle.reshape(B, -1),
+                desc=desc.reshape(B, -1, desc.shape[-1]),
+                mask=oc.keep,
+            ))
+            if oc.last:
+                res = _select(parts, max_features)
+    if single:
+        res = tuple(t[0] for t in res)
+    return res
 
+
+def _select(parts, max_features: int):
+    """The octaves' parts merged, the global top `max_features` by
+    response kept (in octave order when all fit) and padded with zeros:
+    `(xy, response, scale, angle, desc, mask)`."""
     merged = {k: torch.cat([p[k] for p in parts], dim=1) for k in parts[0]}
+    B = merged["mask"].shape[0]
     score = torch.where(merged["mask"], merged["response"],
                         torch.full_like(merged["response"], -float("inf")))
     total = score.shape[1]
@@ -497,11 +532,8 @@ def detect_and_compute(imgs: torch.Tensor, max_features: int = 2048,
         pad = max_features - k
         out = {key: torch.cat([v, v.new_zeros((B, pad) + v.shape[2:])], dim=1)
                for key, v in out.items()}
-    res = (out["xy"], out["response"], out["scale"], out["angle"],
-           out["desc"], out["mask"])
-    if single:
-        res = tuple(t[0] for t in res)
-    return res
+    return (out["xy"], out["response"], out["scale"], out["angle"],
+            out["desc"], out["mask"])
 
 
 def detect_sift_features(img: torch.Tensor, max_features: int = 2048,

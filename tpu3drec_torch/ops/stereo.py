@@ -29,13 +29,13 @@ from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from tpu3drec_torch.ops.image import (
     box_filter, central_gradients, grid_in_bounds, homography_grid,
     sample_grid, to_device, warp_perspective,
 )
 from tpu3drec_torch.ops.pallas_sgm import sgm_aggregate_batch
+from tpu3drec_torch.utils.profiling import span
 
 # cost volumes per SGM call, as in the reference's fused program
 _SGM_MEGABATCH = 8
@@ -250,23 +250,23 @@ def _pairs_block(img_ref, imgs, K_ref, K2s, Rs, ts, num_disparities,
     reference view before it leaves. Returns (depths (N, H, W), valids,
     baselines (N,) float32 on the host, K_rectified of pair 0)."""
     N = imgs.shape[0]
-    with record_function("dense.rectify"):
+    with span("dense.rectify"):
         r1, r2, K_new, baseline, (H1, _), R_new = rectify_pair(
             img_ref, imgs, K_ref[None].expand(N, 3, 3), K2s, Rs, ts)
-    with record_function("dense.cost"):
+    with span("dense.cost"):
         vol = cost_volume(r1, r2, num_disparities)        # (N, D, H, W)
         # left and right view of each pair side by side: (2N, D, H, W)
         vols = torch.stack([vol, _right_view_volume(vol)], 1).flatten(0, 1)
         del vol
-    with record_function("dense.sgm"):
+    with span("dense.sgm"):
         agg = torch.cat([sgm_aggregate_batch(vols[s:s + _SGM_MEGABATCH])
                          for s in range(0, 2 * N, _SGM_MEGABATCH)])
         del vols
-    with record_function("dense.wta_lr"):
+    with span("dense.wta_lr"):
         res = _wta_lr_depth(agg[0::2], agg[1::2], K_new[:, 0, 0] * baseline,
                             lr_max_diff)
         del agg
-    with record_function("dense.unrectify"):
+    with span("dense.unrectify"):
         depths, valids = unrectify_depth(res.depth, res.valid, H1,
                                          K_ref[None].expand(N, 3, 3), R_new,
                                          img_ref.shape[-2:])
@@ -295,7 +295,7 @@ def stereo_depth_pairs_fused(img_ref: torch.Tensor, imgs: torch.Tensor,
     depths, valids, baselines, K0 = _pairs_block(
         img_ref, imgs, _host(K_ref), _host(K2s), _host(Rs), _host(ts),
         num_disparities, lr_max_diff)
-    with record_function("dense.fuse"):
+    with span("dense.fuse"):
         fused, fused_valid = fuse_depth_maps(depths, valids, baselines,
                                              method=fusion)
         fracs = torch.mean(valids.to(torch.float32), dim=(1, 2))
@@ -309,7 +309,7 @@ def stereo_depth_pairs_fused(img_ref: torch.Tensor, imgs: torch.Tensor,
 def fuse_depth_blocks(depths: torch.Tensor, valids: torch.Tensor, baselines,
                       fusion: str = "weighted") -> Dict:
     """Fusion over concatenated block outputs."""
-    with record_function("dense.fuse"):
+    with span("dense.fuse"):
         fused, fused_valid = fuse_depth_maps(depths, valids, baselines,
                                              method=fusion)
         fracs = torch.mean(valids.to(torch.float32), dim=(1, 2))
@@ -429,12 +429,12 @@ def plane_sweep_depth(ref: torch.Tensor, other: torch.Tensor, K_ref, K_other,
     (R, t): pose of `other` relative to `ref` (x_o = R x_r + t). Runs on
     the images' device; the (D, H, W) volume goes through `sgm`."""
     inv_depths = plane_inv_depths(min_depth, max_depth, num_planes)
-    with record_function("dense.sweep_cost"):
+    with span("dense.sweep_cost"):
         volume = _plane_costs(ref, other, K_ref, K_other, R, t, inv_depths,
                               cost_window)
-    with record_function("dense.sgm"):
+    with span("dense.sgm"):
         agg = sgm_aggregate(volume)
-    with record_function("dense.wta_lr"):
+    with span("dense.wta_lr"):
         idx, _ = winner_take_all(agg)
         inv_dev = to_device(inv_depths, ref.device)
         frac, depth = _interp_depth(idx, inv_dev, num_planes)
@@ -499,7 +499,7 @@ def plane_sweep_depth_blockwise(ref: torch.Tensor, other: torch.Tensor, K_ref,
     c_after = torch.full((h, w), big, device=dev)
     c_prev = torch.full((h, w), big, device=dev)
     for s in range(0, num_planes, slab):
-        with record_function("dense.sweep_cost"):
+        with span("dense.sweep_cost"):
             costs = _plane_costs(ref, other, K_ref, K_other, R, t,
                                  inv_depths[s:s + slab], cost_window)
         for k in range(slab):

@@ -5,8 +5,16 @@ Port of `__graft_entry__.py:_make_pair_fn`, which the reference's
 `bench.py` batches with vmap. Here the batch is explicit: all 2B images
 go through SIFT as one batch (the `ori_desc` kernel launches once per
 octave), all B pairs are matched by one `knn2` launch, and RANSAC scores
-every pair's hypotheses at once. The three stages run under profiler
-ranges `pair_step.detect`, `pair_step.match` and `pair_step.ransac`.
+every pair's hypotheses at once.
+
+While a profiler records, the three stages run under the spans
+`pair_step.detect`, `pair_step.match` and `pair_step.ransac`
+(`utils/profiling.py:span`). Inside detection, each octave opens
+`sift.blur`, `sift.extrema`, `sift.refine`, `sift.ori_desc` and
+`sift.select` (`ops/sift.py`); inside matching, `knn2.kernel` holds the
+kernel's launch alone (`ops/pallas_match.py:knn2_raw`). The counters
+`knn2.macs.*`, `knn2.bytes`, `upload.copies` and `upload.bytes` count
+the kernel's work and the host constants copied to the device.
 """
 
 from __future__ import annotations
@@ -14,12 +22,12 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional
 
 import torch
-from torch.profiler import record_function
 
 from tpu3drec_torch.ops.geometry import find_homography
 from tpu3drec_torch.ops.match import knn2
 from tpu3drec_torch.ops.ransac import draw_uniform
 from tpu3drec_torch.ops.sift import detect_and_compute
+from tpu3drec_torch.utils.profiling import span
 
 RATIO = 0.75
 
@@ -40,16 +48,16 @@ def make_pair_fn(max_features: int = 512, num_hypotheses: int = 128
                              f"shape, got {tuple(img1.shape)} and "
                              f"{tuple(img2.shape)}")
         B = img1.shape[0]
-        with record_function("pair_step.detect"):
+        with span("pair_step.detect"):
             xy, _, _, _, desc, mask = detect_and_compute(
                 torch.cat([img1, img2]), max_features)
         xy1, xy2 = xy[:B], xy[B:]
         m1, m2 = mask[:B], mask[B:]
-        with record_function("pair_step.match"):
+        with span("pair_step.match"):
             nn_idx, nn_dist = knn2(desc[:B], desc[B:], m1, m2, metric="l2_int8")
             ok = (nn_dist[..., 0] < RATIO * torch.clamp(nn_dist[..., 1], min=1e-12)) & m1
             p2 = xy2.gather(1, nn_idx[..., :1].long().expand(-1, -1, 2))
-        with record_function("pair_step.ransac"):
+        with span("pair_step.ransac"):
             if u is None:
                 gen = torch.Generator(device=img1.device).manual_seed(0)
                 u = draw_uniform(num_hypotheses, 4, gen, img1.device)

@@ -35,7 +35,6 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from tpu3drec_torch.core.device import resolve_device
 from tpu3drec_torch.ops import mesh as mesh_ops
@@ -48,6 +47,7 @@ from tpu3drec_torch.ops.stereo import (
 from tpu3drec_torch.ops.tsdf import tsdf_mesh
 from tpu3drec_torch.parallel.dense import sharded_pairwise_stereo
 from tpu3drec_torch.parallel.mesh import make_mesh, world_size
+from tpu3drec_torch.utils.profiling import span
 
 _IMPLICIT = ("poisson", "ball_pivot", "alpha")
 _FUSED_MAX = 6   # neighbour views fused in one call up to here
@@ -165,7 +165,7 @@ class DenseReconstructionPipeline:
                                        device=self.device)
         valids = torch.stack([o["valid"] for o in outs])
         baselines = [float(o["baseline"]) for o in outs]
-        with record_function("dense.fuse"):
+        with span("dense.fuse"):
             fused, fused_valid = fuse_depth_maps(
                 torch.stack([o["depth"] for o in outs]), valids,
                 torch.tensor(baselines, dtype=torch.float32),
@@ -213,7 +213,7 @@ class DenseReconstructionPipeline:
         # ---- stage 2: point cloud -------------------------------------
         stride = max(1, int(np.ceil(np.sqrt(
             fused.shape[0] * fused.shape[1] / self.max_cloud_points))))
-        with record_function("dense.outliers"):
+        with span("dense.outliers"):
             pts, colors, mask = pc.depth_map_to_point_cloud(
                 fused, K_ref.astype(np.float32), R_ref.astype(np.float32),
                 t_ref.astype(np.float32), image=img_ref, valid=fused_valid,
@@ -221,7 +221,7 @@ class DenseReconstructionPipeline:
             mask = pc.statistical_outlier_mask(
                 pts, mask, k=self.outlier_k, std_ratio=self.outlier_std)
         # O(N^2) kNN normals up to 16k points, voxel-hash kNN beyond
-        with record_function("dense.normals"):
+        with span("dense.normals"):
             viewpoint = (-R_ref.T @ t_ref).astype(np.float32)
             if pts.shape[0] <= 16384:
                 normals = pc.estimate_normals(pts, mask, viewpoint=viewpoint)
@@ -232,7 +232,7 @@ class DenseReconstructionPipeline:
             colors_np = (colors[mask].cpu().numpy() if colors is not None
                          else None)
             normals_np = normals[mask].cpu().numpy()
-        with record_function("dense.cloud_quality"):
+        with span("dense.cloud_quality"):
             if self.voxel_size:
                 pts_np, colors_np = pc.voxel_downsample(
                     pts_np, self.voxel_size, colors_np)
@@ -244,7 +244,7 @@ class DenseReconstructionPipeline:
         fused_np = fused.cpu().numpy()
         fused_valid_np = fused_valid.cpu().numpy()
         mesh_method_used = self.mesh_method
-        with record_function("dense.mesh_extract"):
+        with span("dense.mesh_extract"):
             if self.mesh_method == "tsdf" and fused_valid_np.any():
                 # no try here: a fault on the device raises
                 tm = tsdf_mesh(fused_np, fused_valid_np,
@@ -263,7 +263,7 @@ class DenseReconstructionPipeline:
                 verts, faces = mesh_ops.depth_map_to_mesh(
                     fused_np, K_ref, R_ref, t_ref, valid=fused_valid_np,
                     stride=self.mesh_stride)
-        with record_function("dense.mesh_post"):
+        with span("dense.mesh_post"):
             verts, faces = mesh_ops.repair_mesh(verts, faces)
             verts, faces = mesh_ops.smooth_mesh(verts, faces, iterations=2)
             vert_colors = mesh_ops.project_texture(

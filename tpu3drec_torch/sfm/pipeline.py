@@ -43,7 +43,6 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from tpu3drec_torch.core.device import resolve_device
 from tpu3drec_torch.ops.ba import BAConfig, bundle_adjust
@@ -66,6 +65,7 @@ from tpu3drec_torch.sfm.pair_selector import (
     validate_correspondences,
 )
 from tpu3drec_torch.sfm.reconstruction import Camera, Reconstruction
+from tpu3drec_torch.utils.profiling import span
 
 ESSENTIAL_HYPOTHESES = 1024   # find_essential's default, as the reference
 PROGRESSIVE_CHUNK = 4         # (anchor, unprocessed) pairs per batched call
@@ -238,7 +238,7 @@ class SfMPipeline:
         (`key`, e.g. "pnp_s") and marks it as the profiler range
         "sfm.<phase>"."""
         t0 = time.perf_counter()
-        with record_function("sfm." + key[:-2]):
+        with span("sfm." + key[:-2]):
             yield
         self._view_timings[key] = time.perf_counter() - t0
 
@@ -283,7 +283,7 @@ class SfMPipeline:
         # ---- Phase 1: two-view initialisation --------------------------
         if not resumed:
             t0 = time.perf_counter()
-            with record_function("sfm.init"):
+            with span("sfm.init"):
                 init = self._initialize_two_view(recon, matches_data,
                                                  image_info)
             if init is None:
@@ -334,7 +334,7 @@ class SfMPipeline:
 
         # ---- Phase 3: global optimisation ------------------------------
         t0 = time.perf_counter()
-        with record_function("sfm.global_ba"):
+        with span("sfm.global_ba"):
             stats = self._global_ba(recon)
             self._validate_points(recon)
         self.history.append({"phase": "global_ba", **stats,

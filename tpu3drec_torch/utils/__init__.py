@@ -1,5 +1,6 @@
-"""Timing spans, device traces and memory snapshots."""
+"""Profiler spans, counters, device traces and memory snapshots."""
 
 from tpu3drec_torch.utils.profiling import (
-    Timer, span, ProfileCollector, device_memory_stats, trace_to,
+    Timer, span, count, counters, reset_counters, upload, ProfileCollector,
+    device_memory_stats, trace_to,
 )

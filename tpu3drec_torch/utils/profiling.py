@@ -1,9 +1,25 @@
 """Tracing / profiling utilities.
 
-Port of `tpu3drec/utils/profiling.py`:
+Port of `tpu3drec/utils/profiling.py`, with the port's one span API and
+one counter registry:
 
-- `Timer` / `span(...)`: named wall-clock spans collected into a
-  `ProfileCollector` (per-stage timing in result metadata);
+- `span(name)`: a `torch.profiler.record_function` range while a
+  profiler session records, else a shared null context. The range is a
+  kineto user annotation on the profiler's clock, so a trace reader can
+  put each device op and idle gap down to the innermost open span. With
+  no profiler recording it costs one flag read (~0.35 us a span on a
+  CPU, where an idle `record_function` costs ~10 us);
+- `count(name, n, per, plus)`, `counters()`, `reset_counters()`: named
+  counts in two views. Process totals count every host integer, always. The
+  traced view holds what was counted while a profiler recorded, and
+  starts again from zero at the first count of a new session; a count
+  whose value is a device tensor enters only that view and is read back
+  only by `counters(traced=True)`, so no count launches a kernel or
+  synchronises while nothing records;
+- `upload(host, device)`: a host constant copied to a tensor on
+  `device`, counted as `upload.copies` and `upload.bytes` whatever the
+  device;
+- `Timer` and `ProfileCollector`: wall-clock timing of named spans;
 - `trace_to(dir)`: a `torch.profiler` trace of the CPU and, where there
   is one, the card, written into `dir` as a Chrome trace
   (`trace_<pid>_<n>.json`); a no-op where the profiler cannot start;
@@ -16,11 +32,116 @@ from __future__ import annotations
 import contextlib
 import itertools
 import os
+import threading
 import time
 import tracemalloc
 from collections import defaultdict
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Tuple
+
+import torch
+from torch.autograd import _profiler_enabled as recording
+from torch.profiler import record_function
+
+_NULL = contextlib.nullcontext()
+
+
+class Counters:
+    """Named counts in two views (see the module docstring). A profiler
+    session is told from the one before by the registry seeing no
+    profiler in between, at a span, a count or a read."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._total: Dict[str, int] = {}
+        self._traced: Dict[str, int] = {}
+        # the traced view's device-valued counts (name, n, per, plus),
+        # read back only when the view is read
+        self._pending: List[Tuple[str, torch.Tensor, int, int]] = []
+        self.session_over = True
+
+    def count(self, name: str, n=1, per: int = 1, plus: int = 0) -> None:
+        if recording():
+            self._count_recorded(name, n, per, plus)
+            return
+        self.session_over = True
+        if type(n) is not int and isinstance(n, torch.Tensor):
+            return
+        with self._lock:
+            self._total[name] = self._total.get(name, 0) + n * per + plus
+
+    def _count_recorded(self, name: str, n, per: int, plus: int) -> None:
+        with self._lock:
+            if self.session_over:
+                self.session_over = False
+                self._traced.clear()
+                self._pending.clear()
+            if isinstance(n, torch.Tensor):
+                self._pending.append((name, n.detach(), per, plus))
+                return
+            v = n * per + plus
+            self._traced[name] = self._traced.get(name, 0) + v
+            self._total[name] = self._total.get(name, 0) + v
+
+    def read(self, traced: bool = False) -> Dict[str, int]:
+        """A copy of the process totals, or of the traced view with its
+        device-valued counts read back."""
+        if not recording():
+            self.session_over = True
+        with self._lock:
+            if not traced:
+                return dict(self._total)
+            out = dict(self._traced)
+            pending = list(self._pending)
+        for name, n, per, plus in pending:
+            out[name] = out.get(name, 0) + int(n) * per + plus
+        return out
+
+    def reset(self) -> None:
+        with self._lock:
+            self._total.clear()
+            self._traced.clear()
+            self._pending.clear()
+            self.session_over = True
+
+
+_COUNTERS = Counters()
+
+
+def span(name: str):
+    """`with span("sift.blur"): ...`: a profiler range while a profiler
+    records, else nothing."""
+    if recording():
+        return record_function(name)
+    _COUNTERS.session_over = True
+    return _NULL
+
+
+def count(name: str, n=1, per: int = 1, plus: int = 0) -> None:
+    """Adds `n * per + plus` to the counter `name`: `n` a host integer, or
+    a device tensor, counted only while a profiler records and read back
+    (`n` as an int64 scalar) when the traced view is read."""
+    _COUNTERS.count(name, n, per, plus)
+
+
+def counters(traced: bool = False) -> Dict[str, int]:
+    """The process totals, or with `traced` the counts of the newest
+    profiler session."""
+    return _COUNTERS.read(traced)
+
+
+def reset_counters() -> None:
+    _COUNTERS.reset()
+
+
+def upload(host, device, dtype=None) -> torch.Tensor:
+    """`host` (a numpy array, list or number) as a new tensor on `device`:
+    one host-to-device copy on a card, counted as `upload.copies` and
+    `upload.bytes` on any device."""
+    out = torch.tensor(host, dtype=dtype, device=device)
+    _COUNTERS.count("upload.copies")
+    _COUNTERS.count("upload.bytes", out.nbytes)
+    return out
 
 
 class Timer:
@@ -64,17 +185,7 @@ class ProfileCollector:
         self.spans.clear()
 
 
-_GLOBAL = ProfileCollector()
 _TRACES = itertools.count()
-
-
-def span(name: str):
-    """Global-collector span: `with span("detect"): ...`."""
-    return _GLOBAL.span(name)
-
-
-def global_summary() -> Dict:
-    return _GLOBAL.summary()
 
 
 @contextlib.contextmanager
@@ -82,7 +193,6 @@ def trace_to(log_dir: str):
     """`torch.profiler` trace of the enclosed work, exported as a Chrome
     trace into `log_dir`. Falls back to a no-op where the profiler cannot
     start or export."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -116,7 +226,6 @@ def device_memory_stats() -> Dict:
     the tracemalloc counters while tracemalloc traces."""
     out: Dict = {}
     try:
-        import torch
         if torch.cuda.is_available():
             stats = torch.cuda.memory_stats()
             out["device_bytes_in_use"] = int(
