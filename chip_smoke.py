@@ -23,7 +23,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
      ties, no or one valid column, ragged N and M, D 37 to 1024, rows off
      a 16-byte boundary), each twice for identical bits; `knn2` is timed
      at the path's input and at full occupancy beside two yardsticks (f32
-     matmul + topk, a bf16 tensor-core GEMM + topk);
+     matmul + topk, a bf16 tensor-core GEMM + topk); `dog_extrema` bit for
+     bit in DoG and score against its plain form (subtraction, two
+     `max_pool3d`, gates, `where`) on the five Gaussian stacks of the full
+     batch, each twice, timed per octave and for the five beside its
+     bound (the stacks read once, DoG and score written once) and the
+     plain form;
   3. the main path: `make_pair_fn(max_features=2048, num_hypotheses=256)`
      on 96 pairs of 480x640 images, each a synthetic photo and a known
      similarity warp of it. Launch counts are read around one call, then
@@ -480,11 +485,11 @@ def cuda_ms(torch, fn, reps=REPS):
 
 
 def kernel_counts():
-    """The three kernels' launches, from the port's counter registry."""
+    """The kernels' launches, from the port's counter registry."""
     from tpu3drec_torch.utils.profiling import counters
     c = counters()
     return {name: c.get(f"{name}.launches", 0)
-            for name in ("ori_desc", "knn2", "sgm")}
+            for name in ("ori_desc", "knn2", "sgm", "dog_extrema")}
 
 
 def reset_counts():
@@ -1276,6 +1281,88 @@ def check_sgm(torch, vols):
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 library_ms=None)
+
+
+def dog_extrema_stacks(torch, imgs):
+    """The Gaussian stacks the detector hands `ops.sift.dog_extrema` for
+    `imgs`, one an octave, kept by a spy as `octave_samples` runs."""
+    from tpu3drec_torch.ops import sift
+    seen = []
+    real = sift.dog_extrema
+
+    def spy(gauss, ct):
+        seen.append(gauss)
+        return real(gauss, ct)
+
+    sift.dog_extrema = spy
+    try:
+        for _ in sift.octave_samples(imgs, MAX_FEATURES):
+            pass
+    finally:
+        sift.dog_extrema = real
+    return seen
+
+
+def same_bits(torch, a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def check_dog_extrema(torch, imgs):
+    """`dog_extrema` against its plain form on the card (the subtraction,
+    two `max_pool3d`, the gates and the `where`), bit for bit in both
+    outputs, on the five octaves' Gaussian stacks of the pair step's
+    images, each launched twice; timed per octave and for the five,
+    beside the bound (the stacks read once, DoG and score written once)
+    and the plain form; returns the kernel line fields."""
+    from tpu3drec_torch.ops import sift
+    ct = 0.04
+    stacks = dog_extrema_stacks(torch, imgs)
+    shapes = [tuple(g.shape) for g in stacks]
+    per_octave, bytes_all, kept = [], 0, 0
+    for g in stacks:
+        kd, ks = sift.dog_extrema_kernel(g, ct)
+        pd, pscore = sift.dog_extrema_plain(g, ct)
+        kd2, ks2 = sift.dog_extrema_kernel(g, ct)
+        torch.cuda.synchronize()
+        if not (same_bits(torch, kd, pd) and same_bits(torch, ks, pscore)):
+            bad = int((kd.view(torch.int32) != pd.view(torch.int32)).sum()
+                      + (ks.view(torch.int32) != pscore.view(torch.int32)).sum())
+            fail(f"dog_extrema differs from its plain form at {tuple(g.shape)}: "
+                 f"{bad} values")
+        if not (same_bits(torch, kd, kd2) and same_bits(torch, ks, ks2)):
+            fail(f"two dog_extrema launches differ at {tuple(g.shape)}")
+        kept += int((ks != 0).sum())
+        bytes_ = (g.numel() + 2 * kd.numel()) * 4
+        bytes_all += bytes_
+        per_octave.append((cuda_ms(torch, lambda: sift.dog_extrema_kernel(g, ct)),
+                           bytes_ / PEAK_BYTES_PER_S * 1e3))
+        del kd, ks, pd, pscore, kd2, ks2
+    print(f"dog_extrema vs plain: DoG and score bit-equal on the pair "
+          f"step's {len(stacks)} octaves {shapes}, {kept} extrema kept; two "
+          f"launches bit-identical at each")
+
+    def kernel():
+        for g in stacks:
+            sift.dog_extrema_kernel(g, ct)
+
+    def plain():
+        for g in stacks:
+            sift.dog_extrema_plain(g, ct)
+
+    ms = cuda_ms(torch, kernel)
+    kernel_ms = ms_of(device_ms_by_kernel(torch, kernel), "dog_extrema_kernel")
+    plain_ms = cuda_ms(torch, plain, reps=2)
+    bound = bytes_all / PEAK_BYTES_PER_S * 1e3
+    print(f"dog_extrema: {ms:.3f} ms for the {len(stacks)} octaves (CUDA events; "
+          f"device time of the kernels in one profiled call "
+          f"{fmt_ms(kernel_ms)}); bound {bytes_all / 1e9:.3f} GB -> "
+          f"{bound:.4f} ms at {PEAK_BYTES_PER_S / 1e12} TB/s "
+          f"({bound / ms * 100:.1f}% of it); plain {plain_ms:.3f} ms; per "
+          f"octave " + ", ".join(f"{m:.4f} ms (bound {b:.4f})"
+                                 for m, b in per_octave))
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by="bytes", library_ms=None, kernel_ms=kernel_ms,
+                octave_ms=[m for m, _ in per_octave])
 
 
 def dense_folder(h, w, seed):
@@ -4744,6 +4831,7 @@ def main():
     samples = list(octave_samples(imgs, MAX_FEATURES))
     fields = {"ori_desc": check_ori_desc(torch, samples)}
     del samples
+    fields["dog_extrema"] = check_dog_extrema(torch, imgs)
     _, _, _, _, desc, mask = detect_and_compute(imgs, MAX_FEATURES)
     fields["knn2"] = check_knn2(torch, desc, mask, BATCH)
     del desc, mask, imgs
@@ -4884,6 +4972,7 @@ def main():
                  "tpu3drec/ops/pallas_match.py:91"),
         "sgm": ("tpu3drec_torch/csrc/sgm.cu",
                 "tpu3drec/ops/pallas_sgm.py:117"),
+        "dog_extrema": ("tpu3drec_torch/csrc/dog_extrema.cu", None),
     }
     kernels = []
     for name, (src, rep) in sources.items():
@@ -4909,7 +4998,8 @@ def main():
                             **{path: n[name] for path, n in
                                par["launches"].items() if n[name]}},
                         **{k: v for k, v in f.items() if k.startswith(
-                            ("full_", "library_bf16", "kernel_ms", "orb_", "f32_",
+                            ("full_", "library_bf16", "kernel_ms", "octave_ms",
+                             "orb_", "f32_",
                              "folder_", "akaze_", "brisk_", "accurate_",
                              "sweep_", "deep_", "serve_", "tp_knn2_"))}})
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"

@@ -6,6 +6,11 @@ images `(B, H, W)`, so the `ori_desc` kernel launches once per octave for
 the whole batch. Output is the reference's fixed-capacity bundle
 `(xy, response, scale, angle, desc, mask)`, each with a leading `B`.
 
+Each octave's DoG stack and extremum score come from `dog_extrema`: the
+plain form (subtraction, two `max_pool3d`, gates, `where`) on the CPU,
+the hand-written kernel `csrc/dog_extrema.cu` on the card, one launch an
+octave with the same bits.
+
 `sampler=` picks how orientation and descriptor are sampled, with the
 reference's names: "pallas" (and "auto") runs the window route, the
 `ori_desc` kernel on the card and its plain version on the CPU; "xla"
@@ -19,6 +24,7 @@ descriptors at fixed points, for the Harris and GFTT detectors.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 from typing import Iterator
@@ -31,7 +37,7 @@ from tpu3drec_torch.core.types import DescriptorKind, Features
 from tpu3drec_torch.ops.image import (
     band_matrix, downsample2, gaussian_blur_matmul, resize,
 )
-from tpu3drec_torch.utils.profiling import span, upload
+from tpu3drec_torch.utils.profiling import count, span, upload
 
 # ---------------------------------------------------------------------
 # constants (OpenCV defaults)
@@ -48,6 +54,7 @@ DESC_SCL_FCTR = 3.0     # hist width = 3 * scale
 DESC_MAG_THR = 0.2
 ORI_SAMPLES = 9         # orientation-patch side of the gather sampler
 DESC_SAMPLES = 12       # descriptor-patch side of the gather sampler
+EXTREMA_BORDER = 5      # px along every edge where no extremum is kept
 
 # cv2-compatible orientation-bin direction: OpenCV's descriptor bins run
 # the opposite way around the circle from this y-down layout, so the
@@ -264,9 +271,64 @@ def _dog_extrema_mask(dog: torch.Tensor, contrast_threshold: float):
     prelim = 0.5 * contrast_threshold / N_LAYERS
     is_ext = ((dog >= mx) | (dog <= mn)) & (dog.abs() > prelim)
     ok = torch.zeros_like(is_ext)
-    b = 5
+    b = EXTREMA_BORDER
     ok[:, 1:N_LAYERS + 1, b:h - b, b:w - b] = True
     return is_ext & ok
+
+
+def dog_extrema_plain(gauss: torch.Tensor, contrast_threshold: float):
+    """The plain form of `dog_extrema`: the subtraction, the mask and the
+    score as separate PyTorch operations."""
+    dog = gauss[:, 1:] - gauss[:, :-1]
+    ext = _dog_extrema_mask(dog, contrast_threshold)
+    return dog, torch.where(ext, dog.abs(), torch.zeros_like(dog))
+
+
+def dog_extrema_kernel(gauss: torch.Tensor, contrast_threshold: float):
+    """The kernel's route for a contiguous CUDA Gaussian stack: one
+    launch of `csrc/dog_extrema.cu` on the current stream, counted on the
+    counter `dog_extrema.launches`."""
+    if gauss.device.type != "cuda":
+        raise ValueError("dog_extrema: the kernel takes a CUDA tensor")
+    from tpu3drec_torch._nvcc import load
+    fn = load("dog_extrema").dog_extrema_launch
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    B, S, h, w = gauss.shape
+    dog = torch.empty((B, S - 1, h, w), dtype=gauss.dtype, device=gauss.device)
+    score = torch.empty_like(dog)
+    # the gate as float32, as PyTorch rounds the scalar `dog.abs() > prelim`
+    prelim = 0.5 * contrast_threshold / N_LAYERS
+    with torch.cuda.device(gauss.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(gauss.data_ptr(), dog.data_ptr(), score.data_ptr(), B, S, h,
+                 w, prelim, EXTREMA_BORDER, stream)
+    if err != 0:
+        raise RuntimeError(f"dog_extrema kernel launch failed: CUDA error {err}")
+    count("dog_extrema.launches")
+    return dog, score
+
+
+def dog_extrema(gauss: torch.Tensor, contrast_threshold: float):
+    """DoG stack and extremum score of one octave's Gaussian stack
+    `(B, N_LAYERS + 3, h, w)` float32, contiguous: `(dog, score)`, each
+    `(B, N_LAYERS + 2, h, w)`, where score is |dog| at the 3x3x3 extrema
+    that `_dog_extrema_mask` keeps and 0 elsewhere. The plain form for a
+    CPU tensor, the kernel (`csrc/dog_extrema.cu`, the same bits) for a
+    CUDA tensor."""
+    if gauss.dtype != torch.float32 or gauss.ndim != 4:
+        raise TypeError(f"dog_extrema: need a (B, S, h, w) float32 stack, "
+                        f"got {gauss.dtype} {tuple(gauss.shape)}")
+    if gauss.shape[1] != N_LAYERS + 3 or not gauss.is_contiguous():
+        raise ValueError(f"dog_extrema: need {N_LAYERS + 3} contiguous "
+                         f"levels, got {tuple(gauss.shape)} with strides "
+                         f"{gauss.stride()}")
+    if gauss.device.type == "cpu":
+        return dog_extrema_plain(gauss, contrast_threshold)
+    if gauss.device.type != "cuda":
+        raise ValueError(f"dog_extrema: unsupported device {gauss.device}")
+    return dog_extrema_kernel(gauss, contrast_threshold)
 
 
 def _refine_candidates(dog: torch.Tensor, sel_s, sel_y, sel_x,
@@ -385,14 +447,12 @@ def octave_samples(imgs: torch.Tensor, max_features: int = 2048,
             gauss = _gaussian_pyramid(cur)              # (B, S, h, w)
         S, hh, wh = gauss.shape[1:]
         with span("sift.extrema"):
-            dog = gauss[:, 1:] - gauss[:, :-1]
-            ext = _dog_extrema_mask(dog, contrast_threshold)
+            dog, score = dog_extrema(gauss, contrast_threshold)
+            score = score.reshape(B, -1)
 
             # per-octave candidate budget; the global top-K keeps
             # max_features across octaves afterwards
             cap = max(128, (max_features * 5 // 8) >> o)
-            score = torch.where(ext, dog.abs(),
-                                torch.zeros_like(dog)).reshape(B, -1)
             k_cap = min(cap, score.shape[1])
             vals, idx = torch.topk(score, k_cap, dim=1)
             cand_ok = vals > 0.0
