@@ -21,6 +21,12 @@ so a row whose keys are all masked gets a uniform softmax, never NaN. The
 paper's adaptive depth and width pruning is left out, as in the
 reference. Every function takes a leading batch axis.
 
+While a profiler records, the network runs under the spans
+`lightglue.embed` (input projection, positional encoding),
+`lightglue.self` (a layer's self blocks), `lightglue.cross` (its cross
+block) and `lightglue.assign` (the assignment head), each opened by
+`utils/profiling.py:span`.
+
 `match_features_lightglue` is the registry's matcher: it loads
 `WEIGHTS_DIR/lightglue_d{D}.npz`, then `lightglue.npz`, for the
 descriptors' dimension D (a cache keyed by D), and raises ImportError
@@ -43,6 +49,7 @@ from tpu3drec_torch.models import _params
 from tpu3drec_torch.models._common import (
     activation_dtype as dtype_named, activations, precision,
 )
+from tpu3drec_torch.utils.profiling import span
 
 _NEG = -1e9
 
@@ -149,9 +156,11 @@ class GlueLayer(nn.Module):
         self.cross_attn = CrossBlock(dim, heads)
 
     def forward(self, d0, d1, pe0, pe1, mask0, mask1):
-        d0 = self.self_attn(d0, *pe0, mask0)
-        d1 = self.self_attn(d1, *pe1, mask1)
-        return self.cross_attn(d0, d1, mask0, mask1)
+        with span("lightglue.self"):
+            d0 = self.self_attn(d0, *pe0, mask0)
+            d1 = self.self_attn(d1, *pe1, mask1)
+        with span("lightglue.cross"):
+            return self.cross_attn(d0, d1, mask0, mask1)
 
 
 class LightGlueNet(nn.Module):
@@ -171,14 +180,16 @@ class LightGlueNet(nn.Module):
         self.matchability = nn.Linear(dim, 1)
 
     def forward(self, desc0, desc1, xy0, xy1, mask0, mask1):
-        d0 = self.input_proj(desc0)
-        d1 = self.input_proj(desc1)
-        pe0, pe1 = self.posenc(xy0), self.posenc(xy1)
+        with span("lightglue.embed"):
+            d0 = self.input_proj(desc0)
+            d1 = self.input_proj(desc1)
+            pe0, pe1 = self.posenc(xy0), self.posenc(xy1)
         for layer in self.transformers:
             d0, d1 = layer(d0, d1, pe0, pe1, mask0, mask1)
         # the assignment head scores in float32 (or wider) whatever the
         # activations
-        with torch.autocast(d0.device.type, enabled=False):
+        with span("lightglue.assign"), \
+                torch.autocast(d0.device.type, enabled=False):
             wide = torch.promote_types(d0.dtype, torch.float32)
             d0, d1 = d0.to(wide), d1.to(wide)
             f0 = self.final_proj(d0) / self.dim ** 0.25

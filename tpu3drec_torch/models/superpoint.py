@@ -15,6 +15,11 @@ normalised. As in the reference:
 `detect_superpoint_features` is the registry entry: one `(H, W)` image or
 a `(B, H, W)` batch, run on the tensor's device with the converted
 weights in `WEIGHTS_DIR/superpoint.npz`.
+
+While a profiler records, `extract` runs under the spans
+`superpoint.encoder` (the VGG encoder), `superpoint.heads` (both
+heads, the cell softmax, the NMS) and `superpoint.select` (top-k,
+descriptor sampling), each opened by `utils/profiling.py:span`.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from tpu3drec_torch.models._common import (
     activation_dtype as dtype_named, activations, l2_normalize, local_peaks,
     precision, top_k_pixels, unbatch,
 )
+from tpu3drec_torch.utils.profiling import span
 
 _CONVS = (("conv1a", 1, 64), ("conv1b", 64, 64), ("conv2a", 64, 64),
           ("conv2b", 64, 64), ("conv3a", 64, 128), ("conv3b", 128, 128),
@@ -55,16 +61,20 @@ class SuperPointNet(nn.Module):
         self.convDb = nn.Conv2d(256, desc_dim, 1)
 
     def forward(self, x: torch.Tensor):
-        x = x.permute(0, 3, 1, 2)
-        for i, (name, _, _) in enumerate(_CONVS):
-            x = F.relu(getattr(self, name)(x))
-            if i in (1, 3, 5):
-                x = F.max_pool2d(x, 2, 2)
-        semi = self.convPb(F.relu(self.convPa(x)))        # (B, 65, h, w)
-        prob = torch.softmax(semi.float(), dim=1)[:, :64]
-        heat = F.pixel_shuffle(prob, 8)[:, 0]             # cell c = 8 r + s
-        desc = self.convDb(F.relu(self.convDa(x))).float()
-        return heat, l2_normalize(desc, 1).permute(0, 2, 3, 1)
+        # in-place ReLUs on each convolution's fresh output: the first
+        # level holds two full-resolution maps at a time, not three
+        with span("superpoint.encoder"):
+            x = x.permute(0, 3, 1, 2)
+            for i, (name, _, _) in enumerate(_CONVS):
+                x = F.relu(getattr(self, name)(x), inplace=True)
+                if i in (1, 3, 5):
+                    x = F.max_pool2d(x, 2, 2)
+        with span("superpoint.heads"):
+            semi = self.convPb(F.relu(self.convPa(x)))    # (B, 65, h, w)
+            prob = torch.softmax(semi.float(), dim=1)[:, :64]
+            heat = F.pixel_shuffle(prob, 8)[:, 0]         # cell c = 8 r + s
+            desc = self.convDb(F.relu(self.convDa(x))).float()
+            return heat, l2_normalize(desc, 1).permute(0, 2, 3, 1)
 
 
 def _sample_descriptors(desc: torch.Tensor, xs: torch.Tensor,
@@ -120,7 +130,8 @@ class SuperPoint:
         with precision(self.matmul_precision), \
                 activations(self.dtype, images.device):
             heat, desc = self.net(images)
-        return local_peaks(heat, self.nms_radius, 0.0), desc
+        with span("superpoint.heads"):
+            return local_peaks(heat, self.nms_radius, 0.0), desc
 
     @torch.no_grad()
     def extract(self, image: torch.Tensor) -> Features:
@@ -135,17 +146,18 @@ class SuperPoint:
         h, w = x.shape[-2:]
         x = F.pad(x, (0, (-w) % 8, 0, (-h) % 8))[..., None]
         heat, desc = self.dense(x)
-        scores, xs, ys = top_k_pixels(heat[:, :h, :w], self.max_features)
-        mask = scores > self.keypoint_threshold
-        v = _sample_descriptors(desc, xs, ys)
-        feats = Features(
-            xy=torch.stack([xs, ys], -1),
-            response=torch.where(mask, scores, torch.zeros_like(scores)),
-            scale=torch.full_like(scores, 8.0),
-            angle=torch.zeros_like(scores),
-            desc=v * mask[..., None], mask=mask,
-            method="SuperPoint", desc_kind=DescriptorKind.FLOAT.value,
-            image_shape=(h, w))
+        with span("superpoint.select"):
+            scores, xs, ys = top_k_pixels(heat[:, :h, :w], self.max_features)
+            mask = scores > self.keypoint_threshold
+            v = _sample_descriptors(desc, xs, ys)
+            feats = Features(
+                xy=torch.stack([xs, ys], -1),
+                response=torch.where(mask, scores, torch.zeros_like(scores)),
+                scale=torch.full_like(scores, 8.0),
+                angle=torch.zeros_like(scores),
+                desc=v * mask[..., None], mask=mask,
+                method="SuperPoint", desc_kind=DescriptorKind.FLOAT.value,
+                image_shape=(h, w))
         return unbatch(feats) if single else feats
 
 
