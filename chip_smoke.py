@@ -28,7 +28,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
      `max_pool3d`, gates, `where`) on the five Gaussian stacks of the full
      batch, each twice, timed per octave and for the five beside its
      bound (the stacks read once, DoG and score written once) and the
-     plain form;
+     plain form; `masked_attention` at the deep cell's self and cross
+     shapes (32 x 2,048 x 2,048, 4 heads of 64, valid prefixes) against
+     the float64 plain form within its TF32 bound and the plain form
+     under TF32, twice for identical bits, timed beside its TF32 bound,
+     the plain form and `scaled_dot_product_attention` with a float mask,
+     then its launches in one deep pair-step batch at 768x1024;
   3. the main path: `make_pair_fn(max_features=2048, num_hypotheses=256)`
      on 96 pairs of 480x640 images, each a synthetic photo and a known
      similarity warp of it. Launch counts are read around one call, then
@@ -1363,6 +1368,172 @@ def check_dog_extrema(torch, imgs):
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by="bytes", library_ms=None, kernel_ms=kernel_ms,
                 octave_ms=[m for m, _ in per_octave])
+
+
+# masked attention at the deep cell's batch: 32 pairs of 2,048 keypoints,
+# 4 heads of 64; the deep pair step at 768x1024 launches it 9 x 4 times
+MA_SHAPE = (32, 2048, 4, 64)
+MA_DEEP_HW = (768, 1024)
+MA_DEEP_LAUNCHES = 36
+PEAK_TF32_OPS = 494.7e12
+
+
+def deep_step_launches(torch, dev):
+    """`masked_attention` launches in one batch of the deep pair step at
+    the deep cell's settings (random networks), and the batch's time."""
+    from tpu3drec_torch.models.lightglue import LightGlue
+    from tpu3drec_torch.models.superpoint import SuperPoint
+    from tpu3drec_torch.pair_step import make_deep_pair_fn
+    from tpu3drec_torch.utils.profiling import counters
+    B, n = MA_SHAPE[:2]
+    h, w = MA_DEEP_HW
+    gen = torch.Generator().manual_seed(SEED)
+    sp = SuperPoint(max_features=n)
+    sp.init_random(gen)
+    sp.net.to(dev)
+    lg = LightGlue(**DEEP_LG)
+    lg.init_random(gen)
+    lg.net.to(dev)
+    fn = make_deep_pair_fn(sp, lg)
+    img1 = torch.tensor(np.stack([synthetic_photo(h, w, SEED + i)
+                                  for i in range(B)]), device=dev)
+    img2, _ = warp_batch(torch, img1, SEED + 1000)
+    fn(img1, img2)
+    torch.cuda.synchronize()
+    before = counters().get("masked_attention.launches", 0)
+    t0 = time.perf_counter()
+    fn(img1, img2)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return counters().get("masked_attention.launches", 0) - before, dt
+
+
+def check_masked_attention(torch, dev):
+    """`masked_attention` against the float64 plain form and against the
+    plain form under TF32, both within `float64_answer_and_limit`'s limit
+    (4 times the larger of the plain form's TF32 error and the error of
+    TF32-rounded operands, measured on the same inputs), at the deep cell's
+    self and cross shapes, two launches bit-identical; the kernel run on
+    the mask a planted fault reads (all keys valid, or keys 64-127 masked)
+    must fall outside that limit. Each timed beside its TF32 bound, the
+    plain form and `F.scaled_dot_product_attention` with an additive float
+    mask (the yardstick only: the port never calls it); the full float32
+    route (3xTF32) at the self shape against float64 and timed beside the
+    plain form with TF32 off; then the launches in one deep pair-step
+    batch. Returns the kernel line fields."""
+    from tpu3drec_torch.ops import attention as at
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    B, n, h, dh = MA_SHAPE
+    gen = torch.Generator().manual_seed(SEED)
+    q, k, v = (torch.randn(B, n, h, dh, generator=gen).to(dev)
+               for _ in range(3))
+    # valid prefixes, as SuperPoint's top-k leaves its slots
+    valid = torch.randint(n * 3 // 4, n + 1, (B,), generator=gen)
+    mask = (torch.arange(n)[None] < valid[:, None]).to(dev)
+    bias = torch.zeros(B, 1, 1, n, device=dev).masked_fill(
+        ~mask[:, None, None, :], -1e9)
+    faults = {"mask ignored": torch.ones_like(mask),
+              "key tile 1 lost": mask.clone()}
+    faults["key tile 1 lost"][:, 64:128] = False
+    flops = 4.0 * B * h * n * n * dh
+    bound = flops / PEAK_TF32_OPS * 1e3
+    cases = {"self": (q, k, v, 1 / math.sqrt(dh)),
+             "cross": (q * dh ** -0.25, k * dh ** -0.25, v, 1.0)}
+    fields = {}
+    try:
+        for label, (qq, kk, vv, scale) in cases.items():
+            got = at.masked_attention_kernel(qq, kk, vv, mask, scale)
+            again = at.masked_attention_kernel(qq, kk, vv, mask, scale)
+            plain = at.masked_attention_plain(qq, kk, vv, mask, scale)
+            torch.cuda.synchronize()
+            if not same_bits(torch, got, again):
+                fail(f"two masked_attention launches differ ({label})")
+            exact, limit = at.float64_answer_and_limit(qq, kk, vv, mask,
+                                                       scale)
+            err = float((got.double() - exact).abs().max())
+            err_plain = float((got - plain).abs().max())
+            if err > limit or err_plain > limit:
+                fail(f"masked_attention ({label}) is {err:.3e} from float64 "
+                     f"and {err_plain:.3e} from the plain form under TF32; "
+                     f"limit {limit:.3e}")
+            fault_err = {}
+            for name, bad in faults.items():
+                out = at.masked_attention_kernel(qq, kk, vv, bad, scale)
+                fault_err[name] = float((out.double() - exact).abs().max())
+                if fault_err[name] <= limit:
+                    fail(f"masked_attention ({label}): the planted fault "
+                         f"'{name}' reads {fault_err[name]:.3e}, within the "
+                         f"limit {limit:.3e}")
+            del got, again, plain, exact, out
+
+            def kernel():
+                at.masked_attention_kernel(qq, kk, vv, mask, scale)
+
+            qt, kt, vt = (x.transpose(1, 2).contiguous()
+                          for x in (qq, kk, vv))
+            ms = cuda_ms(torch, kernel)
+            kernel_ms = ms_of(device_ms_by_kernel(torch, kernel),
+                              "masked_attention_kernel")
+            plain_ms = cuda_ms(torch, lambda: at.masked_attention_plain(
+                qq, kk, vv, mask, scale), reps=2)
+            library_ms = cuda_ms(
+                torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=bias, scale=scale), reps=3)
+            del qt, kt, vt
+            print(f"masked_attention {label} at {B} x {n} x {n}, {h} heads of "
+                  f"{dh}: {ms:.4f} ms (CUDA events; the kernel's device time "
+                  f"in one profiled call {fmt_ms(kernel_ms)}), "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s; bound {bound:.4f} ms at "
+                  f"{PEAK_TF32_OPS / 1e12} TFLOP/s TF32 ({bound / ms * 100:.1f}% "
+                  f"of it); plain {plain_ms:.3f} ms; scaled_dot_product_attention "
+                  f"with a float mask {library_ms:.3f} ms; {err:.3e} from "
+                  f"float64 and {err_plain:.3e} from the plain form under "
+                  f"TF32 (limit {limit:.3e}); planted faults "
+                  + ", ".join(f"{name} {e:.3e}"
+                              for name, e in fault_err.items()))
+            fields[label] = dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                                 library_ms=library_ms, max_abs_err=err,
+                                 limit=limit)
+        # the full float32 route (TF32 off: 3xTF32) at the self shape
+        qq, kk, vv, scale = cases["self"]
+        exact, limit = at.float64_answer_and_limit(qq, kk, vv, mask, scale,
+                                                   full_float32=True)
+        got = at.masked_attention_kernel(qq, kk, vv, mask, scale, True)
+        err = float((got.double() - exact).abs().max())
+        del got, exact
+        if err > limit:
+            fail(f"masked_attention in full float32 is {err:.3e} from "
+                 f"float64; limit {limit:.3e}")
+        ms = cuda_ms(torch, lambda: at.masked_attention_kernel(
+            qq, kk, vv, mask, scale, True))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        plain_ms = cuda_ms(torch, lambda: at.masked_attention_plain(
+            qq, kk, vv, mask, scale), reps=2)
+        print(f"masked_attention self in full float32 (3xTF32): {ms:.4f} ms "
+              f"(CUDA events); plain with TF32 off {plain_ms:.3f} ms; "
+              f"{err:.3e} from float64 (limit {limit:.3e})")
+        fields["f32"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                             limit=limit)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    del q, k, v, mask, bias, faults
+    launches, batch_s = deep_step_launches(torch, dev)
+    print(f"masked_attention launches in one deep pair-step batch ({B} pairs "
+          f"of {MA_DEEP_HW[0]}x{MA_DEEP_HW[1]}): {launches} (expected "
+          f"{MA_DEEP_LAUNCHES}); the batch took {batch_s * 1e3:.1f} ms")
+    if launches != MA_DEEP_LAUNCHES:
+        fail(f"the deep pair step launched masked_attention {launches} "
+             f"times, not {MA_DEEP_LAUNCHES}")
+    s, c = fields["self"], fields["cross"]
+    return dict(max_abs_err=max(s["max_abs_err"], c["max_abs_err"]),
+                limit=min(s["limit"], c["limit"]),
+                ms=s["ms"], plain_ms=s["plain_ms"], bound_ms=bound,
+                bound_by="operations", library_ms=s["library_ms"],
+                kernel_ms=s["kernel_ms"], cross_ms=c["ms"],
+                cross_plain_ms=c["plain_ms"], cross_library_ms=c["library_ms"],
+                f32_ms=fields["f32"]["ms"], f32_plain_ms=fields["f32"]["plain_ms"],
+                f32_max_abs_err=fields["f32"]["max_abs_err"], launches=launches)
 
 
 def dense_folder(h, w, seed):
@@ -4836,6 +5007,7 @@ def main():
     fields["knn2"] = check_knn2(torch, desc, mask, BATCH)
     del desc, mask, imgs
     torch.cuda.synchronize()
+    fields["masked_attention"] = check_masked_attention(torch, dev)
 
     # ---- 3. the main path at full size
     pair_fn = tpu3drec_torch.make_pair_fn(max_features=MAX_FEATURES,
@@ -5002,6 +5174,17 @@ def main():
                              "orb_", "f32_",
                              "folder_", "akaze_", "brisk_", "accurate_",
                              "sweep_", "deep_", "serve_", "tp_knn2_"))}})
+    f = fields["masked_attention"]
+    kernels.append({"name": "masked_attention", "route": "cuda",
+                    "source": "tpu3drec_torch/csrc/masked_attention.cu",
+                    "replaces": None, "launches": f["launches"],
+                    "max_abs_err": f["max_abs_err"], "ms": f["ms"],
+                    "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+                    "bound_by": f["bound_by"],
+                    "library_ms": f["library_ms"],
+                    "launches_by_path": {"deep_pair_step": f["launches"]},
+                    **{k: v for k, v in f.items() if k.startswith(
+                        ("kernel_ms", "cross_", "limit", "f32_"))}})
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in phase_s.items()))
     print(f"chip_smoke wall time: {time.perf_counter() - t_main:.1f} s "

@@ -16,15 +16,19 @@ Port of `tpu3drec/models/lightglue.py`, layer for layer:
   similarity, matchability logits, a double log-softmax and log-sigmoid
   gating. It runs in float32 whatever the activation type.
 
-Padded keypoints are masked out of every softmax with -1e9, not -inf,
-so a row whose keys are all masked gets a uniform softmax, never NaN. The
-paper's adaptive depth and width pruning is left out, as in the
-reference. Every function takes a leading batch axis.
+The self and cross blocks' attention goes through
+`ops/attention.py:masked_attention`: on the CPU the plain composition,
+on the card the one-pass kernel `csrc/masked_attention.cu`, which writes
+no score tensor (TF32, or 3xTF32 under `matmul_precision="highest"`). Padded keypoints are masked out of every softmax with
+-1e9, not -inf, so a row whose keys are all masked gets a uniform softmax,
+never NaN. The paper's adaptive depth and width pruning is left out, as in
+the reference. Every function takes a leading batch axis.
 
 While a profiler records, the network runs under the spans
 `lightglue.embed` (input projection, positional encoding),
 `lightglue.self` (a layer's self blocks), `lightglue.cross` (its cross
-block) and `lightglue.assign` (the assignment head), each opened by
+block), `lightglue.attention` (each `masked_attention` call, inside the
+last two) and `lightglue.assign` (the assignment head), each opened by
 `utils/profiling.py:span`.
 
 `match_features_lightglue` is the registry's matcher: it loads
@@ -49,9 +53,9 @@ from tpu3drec_torch.models import _params
 from tpu3drec_torch.models._common import (
     activation_dtype as dtype_named, activations, precision,
 )
+from tpu3drec_torch.ops.attention import NEG, masked_attention
 from tpu3drec_torch.utils.profiling import span
 
-_NEG = -1e9
 
 
 def normalize_keypoints(xy: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -109,10 +113,9 @@ class SelfBlock(nn.Module):
         q, k, v = (qkv[..., i].transpose(-1, -2) for i in range(3))
         q = apply_rotary(q, cos_i, sin_i)                 # (B, N, h, dh)
         k = apply_rotary(k, cos_i, sin_i)
-        att = torch.einsum("bnhd,bmhd->bhnm", q, k) / math.sqrt(dh)
-        att = att.masked_fill(~mask[:, None, None, :], _NEG)
-        att = torch.softmax(att, dim=-1)
-        ctx = torch.einsum("bhnm,bmhd->bnhd", att, v).reshape(B, n, self.dim)
+        with span("lightglue.attention"):
+            ctx = masked_attention(q, k, v, mask, 1 / math.sqrt(dh))
+        ctx = ctx.reshape(B, n, self.dim)
         return x + self.ffn(torch.cat([x, self.out_proj(ctx)], dim=-1))
 
 
@@ -134,17 +137,14 @@ class CrossBlock(nn.Module):
         qk1 = self.to_qk(x1).reshape(B, -1, h, dh) * scale
         v0 = self.to_v(x0).reshape(B, -1, h, dh)
         v1 = self.to_v(x1).reshape(B, -1, h, dh)
-        sim = torch.einsum("bnhd,bmhd->bhnm", qk0, qk1)   # (B, h, N0, N1)
-        att01 = torch.softmax(
-            sim.masked_fill(~mask1[:, None, None, :], _NEG), dim=-1)
-        # view 1's softmax over view 0's keys, taken along the last axis of
-        # the transpose (a softmax over an inner axis is several times
-        # slower on the card)
-        att10 = torch.softmax(sim.transpose(-1, -2).masked_fill(
-            ~mask0[:, None, None, :], _NEG), dim=-1)       # (B, h, N1, N0)
-        m0 = torch.einsum("bhnm,bmhd->bnhd", att01, v1).reshape(B, -1, self.dim)
-        m1 = torch.einsum("bhmn,bnhd->bmhd", att10, v0).reshape(B, -1, self.dim)
-        m0, m1 = self.to_out(m0), self.to_out(m1)
+        # the similarity's softmax over each axis, one direction a call:
+        # qk carries dh^-0.25 on each side, so the scale is 1
+        with span("lightglue.attention"):
+            m0 = masked_attention(qk0, qk1, v1, mask1, 1.0)
+        with span("lightglue.attention"):
+            m1 = masked_attention(qk1, qk0, v0, mask0, 1.0)
+        m0 = self.to_out(m0.reshape(B, -1, self.dim))
+        m1 = self.to_out(m1.reshape(B, -1, self.dim))
         return (x0 + self.ffn(torch.cat([x0, m0], dim=-1)),
                 x1 + self.ffn(torch.cat([x1, m1], dim=-1)))
 
@@ -197,8 +197,8 @@ class LightGlueNet(nn.Module):
             sim = torch.einsum("bnd,bmd->bnm", f0, f1)
             z0 = self.matchability(d0)[..., 0]
             z1 = self.matchability(d1)[..., 0]
-            sim = sim.masked_fill(~mask0[:, :, None], _NEG)
-            sim = sim.masked_fill(~mask1[:, None, :], _NEG)
+            sim = sim.masked_fill(~mask0[:, :, None], NEG)
+            sim = sim.masked_fill(~mask1[:, None, :], NEG)
             log_assign = (F.log_softmax(sim, dim=2)
                           + F.log_softmax(sim.transpose(1, 2), dim=2)
                           .transpose(1, 2)
