@@ -27,11 +27,10 @@ The kernel launches are counted on `masked_attention.launches`.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
-from tpu3drec_torch.utils.profiling import count
+from tpu3drec_torch import _nvcc
 
 NEG = -1e9
 
@@ -113,17 +112,9 @@ def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
-@functools.lru_cache(maxsize=None)
-def _launcher():
-    """The C entry point of `csrc/masked_attention.cu`, built at first use
-    and typed once (a LightGlue forward launches it 36 times)."""
-    from tpu3drec_torch._nvcc import load
-    fn = load("masked_attention").masked_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 12
-                   + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
-                                           ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_longlong,) * 12
+             + (ctypes.c_int,) * 5 + (ctypes.c_float, ctypes.c_int,
+                                      ctypes.c_void_p))
 
 
 def masked_attention_kernel(q: torch.Tensor, k: torch.Tensor,
@@ -135,8 +126,6 @@ def masked_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     `full_float32`, 3xTF32, counted on `masked_attention.launches`."""
     B, nq, h, dh = q.shape
     nk = k.shape[1]
-    if q.device.type != "cuda":
-        raise ValueError("masked_attention: the kernel takes CUDA tensors")
     if any(t.dtype != torch.float32 for t in (q, k, v)):
         raise TypeError("masked_attention: the kernel takes float32 "
                         f"operands, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -145,20 +134,14 @@ def masked_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                          f"of 8 up to 128, got {dh}")
     if nk < 1:
         raise ValueError("masked_attention: the kernel needs a key")
-    fn = _launcher()
     q, k, v = (_kernel_operand(t) for t in (q, k, v))
     mask = key_mask.contiguous().view(torch.uint8)
     out = torch.empty((B, nq, h, dh), dtype=torch.float32, device=q.device)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-                 out.data_ptr(), *strides, B, h, nq, nk, dh, scale,
-                 int(full_float32), stream)
-    if err != 0:
-        raise RuntimeError(f"masked_attention kernel launch failed: CUDA "
-                           f"error {err}")
-    count("masked_attention.launches")
+    _nvcc.launch("masked_attention", "masked_attention_launch", _ARGTYPES,
+                 q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 mask.data_ptr(), out.data_ptr(), *strides, B, h, nq, nk, dh,
+                 scale, int(full_float32))
     return out
 
 
@@ -183,10 +166,8 @@ def route(device_type: str, dtypes, autocast: bool, allow_tf32: bool) -> str:
     `device_type` with operands of `dtypes`, CUDA autocast on or off and
     the TF32 flag, by the table in the module docstring; raises on what
     neither form takes."""
-    if device_type == "cpu":
+    if _nvcc.route("masked_attention", device_type) == "plain":
         return "plain"
-    if device_type != "cuda":
-        raise ValueError(f"masked_attention: unsupported device {device_type}")
     if any(d not in (torch.float32, torch.bfloat16) for d in dtypes):
         raise TypeError(f"masked_attention: need float32 or bfloat16 "
                         f"operands, got {tuple(dtypes)}")

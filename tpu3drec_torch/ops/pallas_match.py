@@ -26,10 +26,10 @@ alignment as it is.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
+from tpu3drec_torch import _nvcc
 from tpu3drec_torch.utils.profiling import count, recording, span
 
 INT_BIG = 2 ** 31 - 1
@@ -138,52 +138,34 @@ def pad_depth(a: torch.Tensor, b: torch.Tensor):
         a = torch.nn.functional.pad(a, (0, pad))
         b = torch.nn.functional.pad(b, (0, pad))
     # the kernel copies 16 bytes at a time; a view may start off a boundary
-    a = a if a.data_ptr() % 16 == 0 else a.clone()
-    b = b if b.data_ptr() % 16 == 0 else b.clone()
-    return a, b
+    return _nvcc.aligned16(a), _nvcc.aligned16(b)
 
 
-@functools.cache
-def _library():
-    """The kernel's library, its C signatures set once."""
-    from tpu3drec_torch._nvcc import load
-    lib = load("knn2")
-    for fn in (lib.knn2_i8_launch, lib.knn2_f32_launch):
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
-            + [ctypes.c_void_p] * 4
-        fn.restype = ctypes.c_int
-    lib.knn2_work_ints.restype = ctypes.c_longlong
-    lib.knn2_f32_work_ints.argtypes = [ctypes.c_int] * 3
-    lib.knn2_f32_work_ints.restype = ctypes.c_longlong
-    return lib
+_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4
+             + (ctypes.c_void_p,) * 4)
 
 
 def _launch(a, b, bnorm, mask2):
-    lib = _library()
-    fn = lib.knn2_i8_launch if a.dtype == torch.int8 else lib.knn2_f32_launch
+    int8 = a.dtype == torch.int8
     a, b = pad_depth(a, b)
     B, N, D = a.shape
     M = b.shape[1]
     idx = torch.empty(B, N, 2, device=a.device, dtype=torch.int32)
     val = torch.empty(B, N, 2, device=a.device, dtype=bnorm.dtype)
-
-    # the C call launches on the current device
-    with torch.cuda.device(a.device):
-        # each pair's list of valid columns, built by the C call; float32
-        # also keeps the partial top-2s of its column segments there
-        n_work = lib.knn2_work_ints(B, M) if a.dtype == torch.int8 \
-            else lib.knn2_f32_work_ints(B, N, M)
-        if n_work < 0:
-            raise RuntimeError(f"knn2: device query failed: CUDA error "
-                               f"{-n_work}")
-        work = torch.empty(n_work, device=a.device, dtype=torch.int32)
-        stream = torch.cuda.current_stream().cuda_stream
-        # a bool tensor is one byte of 0 or 1 per element, as the kernel reads
-        err = fn(a.data_ptr(), b.data_ptr(), bnorm.data_ptr(),
-                 mask2.data_ptr(), B, N, M, D, work.data_ptr(),
-                 idx.data_ptr(), val.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"knn2 kernel launch failed: CUDA error {err}")
+    # each pair's list of valid columns, built by the C call; float32
+    # also keeps the partial top-2s of its column segments there
+    if int8:
+        n_work = _nvcc.query("knn2", "knn2_work_ints", (ctypes.c_int,) * 2,
+                             a.device, B, M)
+    else:
+        n_work = _nvcc.query("knn2", "knn2_f32_work_ints",
+                             (ctypes.c_int,) * 3, a.device, B, N, M)
+    work = torch.empty(n_work, device=a.device, dtype=torch.int32)
+    # a bool tensor is one byte of 0 or 1 per element, as the kernel reads
+    _nvcc.launch("knn2", "knn2_i8_launch" if int8 else "knn2_f32_launch",
+                 _ARGTYPES, a.device, a.data_ptr(), b.data_ptr(),
+                 bnorm.data_ptr(), mask2.data_ptr(), B, N, M, D,
+                 work.data_ptr(), idx.data_ptr(), val.data_ptr())
     return idx, val
 
 
@@ -213,13 +195,10 @@ def knn2_raw(a: torch.Tensor, b: torch.Tensor, bnorm: torch.Tensor,
     records, `_count_work` counts its work outside that span. The counter
     `knn2.launches` counts the kernel's launches."""
     _check(a, b, bnorm, mask2)
-    if a.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"knn2: unsupported device {a.device}")
+    how = _nvcc.route("knn2", a.device)
     if recording():
         _count_work(a, b, mask2)
     with span("knn2.kernel"):
-        if a.device.type == "cpu":
+        if how == "plain":
             return knn2_plain(a, b, bnorm, mask2)
-        out = _launch(a, b, bnorm, mask2)
-    count("knn2.launches")
-    return out
+        return _launch(a, b, bnorm, mask2)

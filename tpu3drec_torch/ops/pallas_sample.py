@@ -38,16 +38,29 @@ layers) stack.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
+import numpy as np
 import torch
 
-from tpu3drec_torch.ops.sift import (
-    DESC_B, DESC_D, DESC_MAG_THR, DESC_SCL_FCTR, ORI_BINS, ORI_RADIUS_FCTR,
-    ORI_SIG_FCTR, _OBIN_REV,
-)
-from tpu3drec_torch.utils.profiling import count, upload
+from tpu3drec_torch import _nvcc
+from tpu3drec_torch.utils.profiling import upload
+
+# SIFT's orientation and descriptor constants (OpenCV defaults);
+# `ops/sift.py` takes them from here
+ORI_BINS = 36
+ORI_SIG_FCTR = 1.5
+ORI_RADIUS_FCTR = 4.5   # 3 * ORI_SIG_FCTR
+DESC_D = 4              # descriptor spatial bins
+DESC_B = 8              # orientation bins
+DESC_SCL_FCTR = 3.0     # hist width = 3 * scale
+DESC_MAG_THR = 0.2
+
+# cv2-compatible orientation-bin direction: OpenCV's descriptor bins run
+# the opposite way around the circle from this y-down layout, so the
+# columns of every histogram are reversed (see the reference for the
+# derivation); the result is byte-compatible with cv2.SIFT descriptors.
+_OBIN_REV = (-np.arange(8)) % 8
 
 WIN_H = 96     # window rows the core and the band are cut from
 CORE_H = 88    # descriptor core rows
@@ -311,14 +324,8 @@ def _check(dxs, dys, meta, hp: int, fb: int):
         raise ValueError(f"ori_desc: bad hp={hp} / fb={fb}")
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    from tpu3drec_torch._nvcc import load
-    fn = load("ori_desc").ori_desc_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
-        + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 4
-    fn.restype = ctypes.c_int
-    return fn
+_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5
+             + (ctypes.c_float,) * 2 + (ctypes.c_void_p,) * 4)
 
 
 def launch_kernel(dxs, dys, meta, hp: int, fb: int, angle, raw, work=None,
@@ -336,16 +343,11 @@ def launch_kernel(dxs, dys, meta, hp: int, fb: int, angle, raw, work=None,
         raise ValueError("ori_desc: meta and raw must be 16-byte aligned")
     if work is None:
         work = torch.empty(K + 2, device=dxs.device, dtype=torch.int32)
-    with torch.cuda.device(dxs.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel_fn()(
-            dxs.data_ptr(), dys.data_ptr(), meta.data_ptr(), work.data_ptr(),
-            K, h, w, hp, fb, SUPPORT_RADIUS_FCTR, SUPPORT_SLACK,
-            angle.data_ptr(), raw.data_ptr(),
-            0 if boxes_out is None else boxes_out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"ori_desc kernel launch failed: CUDA error {err}")
-    count("ori_desc.launches")
+    _nvcc.launch("ori_desc", "ori_desc_launch", _ARGTYPES, dxs.device,
+                 dxs.data_ptr(), dys.data_ptr(), meta.data_ptr(),
+                 work.data_ptr(), K, h, w, hp, fb, SUPPORT_RADIUS_FCTR,
+                 SUPPORT_SLACK, angle.data_ptr(), raw.data_ptr(),
+                 0 if boxes_out is None else boxes_out.data_ptr())
 
 
 def _launch(dxs, dys, meta, hp: int, fb: int):
@@ -357,9 +359,8 @@ def _launch(dxs, dys, meta, hp: int, fb: int):
     raw = out[:K * nraw].view(K, DESC_D * DESC_D, DESC_B)
     angle = out[K * nraw:]
     if K > 0:
-        if meta.data_ptr() % 16:
-            meta = meta.clone()            # the kernel reads rows as int4
-        launch_kernel(dxs, dys, meta, hp, fb, angle, raw)
+        # the kernel reads meta rows as int4
+        launch_kernel(dxs, dys, _nvcc.aligned16(meta), hp, fb, angle, raw)
     return angle, raw
 
 
@@ -377,10 +378,8 @@ def ori_desc(dxs: torch.Tensor, dys: torch.Tensor, meta: torch.Tensor,
     once, mostly from L2. The counter `ori_desc.launches`
     (`utils/profiling.py:counters`) counts kernel launches."""
     _check(dxs, dys, meta, hp, fb)
-    if dxs.device.type == "cpu":
+    if _nvcc.route("ori_desc", dxs.device) == "plain":
         return ori_desc_plain(dxs, dys, meta, hp, fb)
-    if dxs.device.type != "cuda":
-        raise ValueError(f"ori_desc: unsupported device {dxs.device}")
     return _launch(dxs, dys, meta, hp, fb)
 
 

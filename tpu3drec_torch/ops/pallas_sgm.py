@@ -31,9 +31,10 @@ import ctypes
 
 import torch
 
-from tpu3drec_torch.utils.profiling import count
+from tpu3drec_torch import _nvcc
 
 MAX_DISPARITIES = 128   # csrc/sgm.cu: D <= 32 x MAX_NPL registers a lane
+_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
 
 
 def _dp_step(prev: torch.Tensor, c: torch.Tensor, p1: float,
@@ -86,22 +87,14 @@ def sgm_aggregate_batch_kernel(volumes: torch.Tensor, p1x100: int = 15,
     """The kernel's route for contiguous (B, D, H, W) float32 CUDA
     volumes: one call of the kernel library (the vertical, then the
     horizontal kernel), counted once on the counter `sgm.launches`."""
-    if volumes.device.type != "cuda" or not volumes.is_contiguous():
+    if not volumes.is_contiguous():
         raise ValueError("sgm: the kernel takes a contiguous CUDA tensor")
-    from tpu3drec_torch._nvcc import load
-    fn = load("sgm").sgm_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     B, D, H, W = volumes.shape
     out = torch.empty_like(volumes)
     scratch = torch.empty_like(volumes)
-    with torch.cuda.device(volumes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(volumes.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, D,
-                 H, W, int(p1x100), int(p2x100), stream)
-    if err != 0:
-        raise RuntimeError(f"sgm kernel launch failed: CUDA error {err}")
-    count("sgm.launches")
+    _nvcc.launch("sgm", "sgm_launch", _ARGTYPES, volumes.device,
+                 volumes.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, D,
+                 H, W, int(p1x100), int(p2x100))
     return out
 
 
@@ -110,8 +103,6 @@ def sgm_aggregate_batch(volumes: torch.Tensor, p1x100: int = 15,
     """4-direction aggregation of (B, D, H, W) float32 cost volumes: the
     plain version for CPU tensors, the kernel for CUDA tensors."""
     _check(volumes)
-    if volumes.device.type == "cpu":
+    if _nvcc.route("sgm", volumes.device) == "plain":
         return sgm_aggregate_batch_plain(volumes, p1x100, p2x100)
-    if volumes.device.type != "cuda":
-        raise ValueError(f"sgm: unsupported device {volumes.device}")
     return sgm_aggregate_batch_kernel(volumes, p1x100, p2x100)

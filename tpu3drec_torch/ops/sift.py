@@ -33,34 +33,28 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpu3drec_torch import _nvcc
 from tpu3drec_torch.core.types import DescriptorKind, Features
+from tpu3drec_torch.ops import pallas_sample
 from tpu3drec_torch.ops.image import (
     band_matrix, downsample2, gaussian_blur_matmul, resize,
 )
-from tpu3drec_torch.utils.profiling import count, span, upload
+from tpu3drec_torch.ops.pallas_sample import (
+    DESC_B, DESC_D, DESC_MAG_THR, DESC_SCL_FCTR, ORI_BINS, ORI_RADIUS_FCTR,
+    ORI_SIG_FCTR, _OBIN_REV, frac_bits, pad_dims, prep_meta,
+)
+from tpu3drec_torch.utils.profiling import span, upload
 
 # ---------------------------------------------------------------------
-# constants (OpenCV defaults)
+# constants (OpenCV defaults; the orientation and descriptor ones live
+# with the `ori_desc` kernel in `ops/pallas_sample.py`)
 # ---------------------------------------------------------------------
 N_LAYERS = 3            # nOctaveLayers
 SIGMA0 = 1.6            # base sigma
 INIT_SIGMA = 0.5        # assumed blur of the input image
-ORI_BINS = 36
-ORI_SIG_FCTR = 1.5
-ORI_RADIUS_FCTR = 4.5   # 3 * ORI_SIG_FCTR
-DESC_D = 4              # descriptor spatial bins
-DESC_B = 8              # orientation bins
-DESC_SCL_FCTR = 3.0     # hist width = 3 * scale
-DESC_MAG_THR = 0.2
 ORI_SAMPLES = 9         # orientation-patch side of the gather sampler
 DESC_SAMPLES = 12       # descriptor-patch side of the gather sampler
 EXTREMA_BORDER = 5      # px along every edge where no extremum is kept
-
-# cv2-compatible orientation-bin direction: OpenCV's descriptor bins run
-# the opposite way around the circle from this y-down layout, so the
-# columns of every histogram are reversed (see the reference for the
-# derivation); the result is byte-compatible with cv2.SIFT descriptors.
-_OBIN_REV = (-np.arange(8)) % 8
 
 # (ds, dy, dx) taps of the 3x3x3 quadratic fit
 _STENCIL = [(0, 0, 0),
@@ -284,29 +278,22 @@ def dog_extrema_plain(gauss: torch.Tensor, contrast_threshold: float):
     return dog, torch.where(ext, dog.abs(), torch.zeros_like(dog))
 
 
+_DOG_ARGTYPES = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4
+                 + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+
+
 def dog_extrema_kernel(gauss: torch.Tensor, contrast_threshold: float):
     """The kernel's route for a contiguous CUDA Gaussian stack: one
     launch of `csrc/dog_extrema.cu` on the current stream, counted on the
     counter `dog_extrema.launches`."""
-    if gauss.device.type != "cuda":
-        raise ValueError("dog_extrema: the kernel takes a CUDA tensor")
-    from tpu3drec_torch._nvcc import load
-    fn = load("dog_extrema").dog_extrema_launch
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     B, S, h, w = gauss.shape
     dog = torch.empty((B, S - 1, h, w), dtype=gauss.dtype, device=gauss.device)
     score = torch.empty_like(dog)
     # the gate as float32, as PyTorch rounds the scalar `dog.abs() > prelim`
     prelim = 0.5 * contrast_threshold / N_LAYERS
-    with torch.cuda.device(gauss.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(gauss.data_ptr(), dog.data_ptr(), score.data_ptr(), B, S, h,
-                 w, prelim, EXTREMA_BORDER, stream)
-    if err != 0:
-        raise RuntimeError(f"dog_extrema kernel launch failed: CUDA error {err}")
-    count("dog_extrema.launches")
+    _nvcc.launch("dog_extrema", "dog_extrema_launch", _DOG_ARGTYPES,
+                 gauss.device, gauss.data_ptr(), dog.data_ptr(),
+                 score.data_ptr(), B, S, h, w, prelim, EXTREMA_BORDER)
     return dog, score
 
 
@@ -324,10 +311,8 @@ def dog_extrema(gauss: torch.Tensor, contrast_threshold: float):
         raise ValueError(f"dog_extrema: need {N_LAYERS + 3} contiguous "
                          f"levels, got {tuple(gauss.shape)} with strides "
                          f"{gauss.stride()}")
-    if gauss.device.type == "cpu":
+    if _nvcc.route("dog_extrema", gauss.device) == "plain":
         return dog_extrema_plain(gauss, contrast_threshold)
-    if gauss.device.type != "cuda":
-        raise ValueError(f"dog_extrema: unsupported device {gauss.device}")
     return dog_extrema_kernel(gauss, contrast_threshold)
 
 
@@ -427,8 +412,6 @@ def octave_samples(imgs: torch.Tensor, max_features: int = 2048,
     Each octave's work runs under the spans `sift.blur` (the base blur or
     the decimation, then the pyramid), `sift.extrema` and `sift.refine`;
     none stays open across the `yield`."""
-    from tpu3drec_torch.ops.pallas_sample import frac_bits, pad_dims, prep_meta
-
     B, h0, w0 = imgs.shape
     if upscale:
         h0, w0 = 2 * h0, 2 * w0
@@ -533,8 +516,6 @@ def detect_and_compute(imgs: torch.Tensor, max_features: int = 2048,
 
     sampler: "pallas" or "auto" (the `ori_desc` window route) or "xla"
     (the gather sampler)."""
-    from tpu3drec_torch.ops.pallas_sample import ori_desc_windows
-
     if sampler not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown SIFT sampler {sampler!r}")
     single = imgs.ndim == 2
@@ -548,8 +529,9 @@ def detect_and_compute(imgs: torch.Tensor, max_features: int = 2048,
             if sampler == "xla":
                 angle, desc = _gather_ori_desc(oc)
             else:
-                angle, desc = ori_desc_windows(oc.dxs, oc.dys, oc.meta,
-                                               oc.hp, oc.fb)
+                # looked up at call time, so a spy on it sees these calls
+                angle, desc = pallas_sample.ori_desc_windows(
+                    oc.dxs, oc.dys, oc.meta, oc.hp, oc.fb)
         with span("sift.select"):
             factor = (2.0 ** oc.octave) * (0.5 if upscale else 1.0)
             parts.append(dict(
