@@ -32,8 +32,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
      shapes (32 x 2,048 x 2,048, 4 heads of 64, valid prefixes) against
      the float64 plain form within its TF32 bound and the plain form
      under TF32, twice for identical bits, timed beside its TF32 bound,
-     the plain form and `scaled_dot_product_attention` with a float mask,
-     then its launches in one deep pair-step batch at 768x1024;
+     the plain form and `scaled_dot_product_attention` with a float mask;
+     `conv_nhwc` at each of SuperPoint's twelve layers on the deep
+     batch's 64 images in one launch, against the plain form under TF32
+     over all of them and the float64 plain form on the last two, which
+     must also keep their bits launched alone, timed beside its bound,
+     the plain form and cuDNN's convolution with bias, ReLU and pool, and
+     conv1b in full float32 (3xTF32); then both kernels' launches in one
+     deep pair-step batch at 768x1024;
   3. the main path: `make_pair_fn(max_features=2048, num_hypotheses=256)`
      on 96 pairs of 480x640 images, each a synthetic photo and a known
      similarity warp of it. Launch counts are read around one call, then
@@ -1379,8 +1385,9 @@ PEAK_TF32_OPS = 494.7e12
 
 
 def deep_step_launches(torch, dev):
-    """`masked_attention` launches in one batch of the deep pair step at
-    the deep cell's settings (random networks), and the batch's time."""
+    """`masked_attention` and `conv_nhwc` launches in one batch of the deep
+    pair step at the deep cell's settings (random networks), checked
+    against `MA_DEEP_LAUNCHES` and `CONV_DEEP_LAUNCHES`."""
     from tpu3drec_torch.models.lightglue import LightGlue
     from tpu3drec_torch.models.superpoint import SuperPoint
     from tpu3drec_torch.pair_step import make_deep_pair_fn
@@ -1400,12 +1407,24 @@ def deep_step_launches(torch, dev):
     img2, _ = warp_batch(torch, img1, SEED + 1000)
     fn(img1, img2)
     torch.cuda.synchronize()
-    before = counters().get("masked_attention.launches", 0)
+    names = ("masked_attention", "conv_nhwc")
+    before = {k: counters().get(f"{k}.launches", 0) for k in names}
     t0 = time.perf_counter()
     fn(img1, img2)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    return counters().get("masked_attention.launches", 0) - before, dt
+    counts = {k: counters().get(f"{k}.launches", 0) - before[k]
+              for k in names}
+    print(f"launches in one deep pair-step batch ({B} pairs of {h}x{w}): "
+          f"{counts} (expected masked_attention {MA_DEEP_LAUNCHES}, "
+          f"conv_nhwc {CONV_DEEP_LAUNCHES}); the batch took "
+          f"{dt * 1e3:.1f} ms")
+    for k, want in (("masked_attention", MA_DEEP_LAUNCHES),
+                    ("conv_nhwc", CONV_DEEP_LAUNCHES)):
+        if counts[k] != want:
+            fail(f"the deep pair step launched {k} {counts[k]} times, not "
+                 f"{want}")
+    return counts
 
 
 def check_masked_attention(torch, dev):
@@ -1419,8 +1438,7 @@ def check_masked_attention(torch, dev):
     plain form and `F.scaled_dot_product_attention` with an additive float
     mask (the yardstick only: the port never calls it); the full float32
     route (3xTF32) at the self shape against float64 and timed beside the
-    plain form with TF32 off; then the launches in one deep pair-step
-    batch. Returns the kernel line fields."""
+    plain form with TF32 off. Returns the kernel line fields."""
     from tpu3drec_torch.ops import attention as at
     saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
@@ -1518,13 +1536,6 @@ def check_masked_attention(torch, dev):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
     del q, k, v, mask, bias, faults
-    launches, batch_s = deep_step_launches(torch, dev)
-    print(f"masked_attention launches in one deep pair-step batch ({B} pairs "
-          f"of {MA_DEEP_HW[0]}x{MA_DEEP_HW[1]}): {launches} (expected "
-          f"{MA_DEEP_LAUNCHES}); the batch took {batch_s * 1e3:.1f} ms")
-    if launches != MA_DEEP_LAUNCHES:
-        fail(f"the deep pair step launched masked_attention {launches} "
-             f"times, not {MA_DEEP_LAUNCHES}")
     s, c = fields["self"], fields["cross"]
     return dict(max_abs_err=max(s["max_abs_err"], c["max_abs_err"]),
                 limit=min(s["limit"], c["limit"]),
@@ -1533,7 +1544,194 @@ def check_masked_attention(torch, dev):
                 kernel_ms=s["kernel_ms"], cross_ms=c["ms"],
                 cross_plain_ms=c["plain_ms"], cross_library_ms=c["library_ms"],
                 f32_ms=fields["f32"]["ms"], f32_plain_ms=fields["f32"]["plain_ms"],
-                f32_max_abs_err=fields["f32"]["max_abs_err"], launches=launches)
+                f32_max_abs_err=fields["f32"]["max_abs_err"])
+
+
+# SuperPoint's twelve convolutions on the deep cell's batch: 64 images of
+# 768x1024; name, input (H, W), Cin, Cout, k, ReLU, pool. One forward
+# launches `conv_nhwc` once a layer
+CONV_IMAGES = 64
+CONV_LAYERS = [
+    ("conv1a", 768, 1024, 1, 64, 3, True, False),
+    ("conv1b", 768, 1024, 64, 64, 3, True, True),
+    ("conv2a", 384, 512, 64, 64, 3, True, False),
+    ("conv2b", 384, 512, 64, 64, 3, True, True),
+    ("conv3a", 192, 256, 64, 128, 3, True, False),
+    ("conv3b", 192, 256, 128, 128, 3, True, True),
+    ("conv4a", 96, 128, 128, 128, 3, True, False),
+    ("conv4b", 96, 128, 128, 128, 3, True, False),
+    ("convPa", 96, 128, 128, 256, 3, True, False),
+    ("convPb", 96, 128, 256, 65, 1, False, False),
+    ("convDa", 96, 128, 128, 256, 3, True, False),
+    ("convDb", 96, 128, 256, 256, 1, False, False),
+]
+CONV_DEEP_LAUNCHES = len(CONV_LAYERS)
+
+
+def conv_operands(torch, B, H, W, cin, cout, k, gen, dev):
+    """A layer's input as SuperPoint sees it (an image in [0, 1] at Cin 1,
+    else ReLU'd activations), He-scaled weights and a bias of spread 0.5."""
+    x = (torch.rand(B, H, W, 1, device=dev, generator=gen) if cin == 1
+         else torch.randn(B, H, W, cin, device=dev, generator=gen).relu_())
+    w = torch.randn(cout, cin, k, k, device=dev, generator=gen) \
+        * (2.0 / (cin * k * k)) ** 0.5
+    b = torch.randn(cout, device=dev, generator=gen) * 0.5
+    return x, w, b
+
+
+def max_abs_diff(a, b, chunk=8):
+    """max |a - b| over the leading axis `chunk` at a time (no full-size
+    temporaries)."""
+    return max(float((a[i:i + chunk] - b[i:i + chunk]).abs().max())
+               for i in range(0, a.shape[0], chunk))
+
+
+def conv_against_plain(torch, cv, name, x, w, b, relu, pool, full_float32):
+    """The kernel on all of x in one launch, checked as `check_conv_nhwc`
+    says, in TF32 or (`full_float32`, cuDNN's TF32 flag off) 3xTF32; fails
+    the smoke on a miss. Returns the last two images' error from float64
+    and from the plain form, all images' from the plain form, and the
+    limit."""
+    full = cv.conv2d_nhwc_kernel(x, w, b, relu, pool, full_float32)
+    x2 = x[-2:].contiguous()
+    alone = cv.conv2d_nhwc_kernel(x2, w, b, relu, pool, full_float32)
+    torch.cuda.synchronize()
+    if not same_bits(torch, full[-2:].contiguous(), alone):
+        fail(f"conv_nhwc ({name}): the batch's last two images differ from "
+             f"the same two launched alone")
+    exact, limit = cv.float64_answer_and_limit(x2, w, b, relu, pool,
+                                               full_float32)
+    err = float((alone.double() - exact).abs().max())
+    del exact, x2
+    plain = cv.conv2d_nhwc_plain(x, w, b, relu, pool)
+    err_plain = float((alone - plain[-2:]).abs().max())
+    err_batch = max_abs_diff(full, plain)
+    del full, plain, alone
+    torch.cuda.empty_cache()
+    what = "3xTF32" if full_float32 else "TF32"
+    if err > limit or err_plain > limit or err_batch > 2 * limit:
+        fail(f"conv_nhwc ({name}, {what}): the last two images are "
+             f"{err:.3e} from float64 and {err_plain:.3e} from the plain "
+             f"form (limit {limit:.3e}); all {x.shape[0]} are "
+             f"{err_batch:.3e} from the plain form (limit {2 * limit:.3e})")
+    return err, err_plain, err_batch, limit
+
+
+def check_conv_nhwc(torch, dev):
+    """`conv_nhwc` at each SuperPoint layer's shape on the deep batch's 64
+    images, in one launch as the main path gives them: its last two images
+    (at conv1a's output and conv1b's input past 2^31 floats) bit-identical
+    to the same two launched alone, and within
+    `ops.conv.float64_answer_and_limit`'s limit (measured on those two) of
+    the float64 plain form and of the plain form under TF32; all 64 within
+    twice that limit of the plain form under TF32 (each is within the
+    limit of the float64 answer). Timed (CUDA events) beside its bound (the larger of the layer's MACs at TF32's peak and
+    its input, weights and output moved once at 3.35 TB/s), the plain form
+    (`F.conv2d` on the channels-last view, then the ReLU and the pool, TF32
+    on) and cuDNN's `F.conv2d` with its bias, the ReLU and `max_pool2d` on
+    the NCHW tensor (the yardstick only: the port never calls it); conv1b
+    also in full float32 (3xTF32, cuDNN's TF32 flag off) against float64
+    and the plain form in float32 the same way. Returns the kernel line
+    fields."""
+    from tpu3drec_torch.ops import conv as cv
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows, total = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                       "bound_ms": 0.0, "macs": 0.0}
+    try:
+        for name, H, W, cin, cout, k, relu, pool in CONV_LAYERS:
+            x, w, b = conv_operands(torch, CONV_IMAGES, H, W, cin, cout, k,
+                                    gen, dev)
+            err, err_plain, err_batch, limit = conv_against_plain(
+                torch, cv, name, x, w, b, relu, pool, False)
+
+            def kernel():
+                cv.conv2d_nhwc_kernel(x, w, b, relu, pool)
+
+            def plain_form():
+                cv.conv2d_nhwc_plain(x, w, b, relu, pool)
+
+            ms = cuda_ms(torch, kernel)
+            plain_ms = cuda_ms(torch, plain_form, reps=2)
+            xc = x.permute(0, 3, 1, 2).contiguous()
+            del x
+
+            def library():
+                y = torch.nn.functional.conv2d(xc, w, b, padding=k // 2)
+                y = torch.relu_(y) if relu else y
+                return torch.nn.functional.max_pool2d(y, 2, 2) if pool else y
+
+            library_ms = cuda_ms(torch, library, reps=2)
+            del xc
+            torch.cuda.empty_cache()
+            ho, wo = (H // 2, W // 2) if pool else (H, W)
+            macs = float(CONV_IMAGES) * H * W * cin * cout * k * k
+            moved = 4.0 * (CONV_IMAGES * (H * W * cin + ho * wo * cout)
+                           + cout * (cin * k * k + 1))
+            ops_s, bytes_s = 2 * macs / PEAK_TF32_OPS, moved / PEAK_BYTES_PER_S
+            bound = max(ops_s, bytes_s) * 1e3
+            by = "operations" if ops_s >= bytes_s else "bytes"
+            what = f"{k}x{k}" + (", ReLU" if relu else "") + (
+                ", pool" if pool else "")
+            print(f"conv_nhwc {name} ({CONV_IMAGES} x {H}x{W}, {cin} -> "
+                  f"{cout}, {what}): {ms:.4f} ms, "
+                  f"{2 * macs / ms / 1e9:.1f} TFLOP/s, "
+                  f"{moved / ms / 1e9:.3f} TB/s; bound {bound:.4f} ms ({by}; "
+                  f"{bound / ms * 100:.1f}% of it); plain {plain_ms:.3f} ms; "
+                  f"cuDNN conv + bias + ReLU (+ pool) {library_ms:.3f} ms; "
+                  f"last two images {err:.3e} from float64 and "
+                  f"{err_plain:.3e} from the plain form under TF32 (limit "
+                  f"{limit:.3e}); all {CONV_IMAGES} {err_batch:.3e} from "
+                  f"the plain form (limit {2 * limit:.3e})")
+            rows.append(dict(name=name, ms=ms, plain_ms=plain_ms,
+                             library_ms=library_ms, bound_ms=bound,
+                             bound_by=by, max_abs_err=err, limit=limit,
+                             batch_err=err_batch))
+            for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                           ("library_ms", library_ms), ("bound_ms", bound),
+                           ("macs", macs)):
+                total[key] += v
+        # conv1b in full float32 (TF32 off: 3xTF32)
+        name, H, W, cin, cout, k, relu, pool = CONV_LAYERS[1]
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        x, w, b = conv_operands(torch, CONV_IMAGES, H, W, cin, cout, k, gen,
+                                dev)
+        f32_err, f32_err_plain, f32_err_batch, limit = conv_against_plain(
+            torch, cv, name, x, w, b, relu, pool, True)
+        f32_ms = cuda_ms(torch, lambda: cv.conv2d_nhwc(x, w, b, relu, pool))
+        del x
+        print(f"conv_nhwc {name} in full float32 (3xTF32): {f32_ms:.4f} ms; "
+              f"last two images {f32_err:.3e} from float64 and "
+              f"{f32_err_plain:.3e} from the plain form in float32 (limit "
+              f"{limit:.3e}); all {CONV_IMAGES} {f32_err_batch:.3e} from "
+              f"the plain form (limit {2 * limit:.3e})")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+        torch.cuda.empty_cache()
+    print(f"conv_nhwc, SuperPoint's {len(rows)} layers on {CONV_IMAGES} "
+          f"images: {total['ms']:.3f} ms, "
+          f"{2 * total['macs'] / total['ms'] / 1e9:.1f} TFLOP/s; bound "
+          f"{total['bound_ms']:.3f} ms; plain {total['plain_ms']:.3f} ms; "
+          f"cuDNN {total['library_ms']:.3f} ms")
+    kinds = {r["bound_by"] for r in rows}
+    return dict(max_abs_err=max(r["max_abs_err"] for r in rows),
+                limit=min(r["limit"] for r in rows), ms=total["ms"],
+                plain_ms=total["plain_ms"], bound_ms=total["bound_ms"],
+                bound_by=kinds.pop() if len(kinds) == 1 else "mixed",
+                library_ms=total["library_ms"],
+                layer_bound_by={r["name"]: r["bound_by"] for r in rows},
+                layer_batch_err={r["name"]: r["batch_err"] for r in rows},
+                layer_ms={r["name"]: r["ms"] for r in rows},
+                layer_plain_ms={r["name"]: r["plain_ms"] for r in rows},
+                layer_library_ms={r["name"]: r["library_ms"] for r in rows},
+                layer_bound_ms={r["name"]: r["bound_ms"] for r in rows},
+                f32_ms=f32_ms, f32_max_abs_err=f32_err,
+                f32_batch_err=f32_err_batch)
 
 
 def dense_folder(h, w, seed):
@@ -5008,6 +5206,8 @@ def main():
     del desc, mask, imgs
     torch.cuda.synchronize()
     fields["masked_attention"] = check_masked_attention(torch, dev)
+    fields["conv_nhwc"] = check_conv_nhwc(torch, dev)
+    deep_launches = deep_step_launches(torch, dev)
 
     # ---- 3. the main path at full size
     pair_fn = tpu3drec_torch.make_pair_fn(max_features=MAX_FEATURES,
@@ -5177,14 +5377,29 @@ def main():
     f = fields["masked_attention"]
     kernels.append({"name": "masked_attention", "route": "cuda",
                     "source": "tpu3drec_torch/csrc/masked_attention.cu",
-                    "replaces": None, "launches": f["launches"],
+                    "replaces": None,
+                    "launches": deep_launches["masked_attention"],
                     "max_abs_err": f["max_abs_err"], "ms": f["ms"],
                     "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
                     "bound_by": f["bound_by"],
                     "library_ms": f["library_ms"],
-                    "launches_by_path": {"deep_pair_step": f["launches"]},
+                    "launches_by_path": {
+                        "deep_pair_step": deep_launches["masked_attention"]},
                     **{k: v for k, v in f.items() if k.startswith(
                         ("kernel_ms", "cross_", "limit", "f32_"))}})
+    f = fields["conv_nhwc"]
+    kernels.append({"name": "conv_nhwc", "route": "cuda",
+                    "source": "tpu3drec_torch/csrc/conv_nhwc.cu",
+                    "replaces": None,
+                    "launches": deep_launches["conv_nhwc"],
+                    "max_abs_err": f["max_abs_err"], "ms": f["ms"],
+                    "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+                    "bound_by": f["bound_by"],
+                    "library_ms": f["library_ms"],
+                    "launches_by_path": {
+                        "deep_pair_step": deep_launches["conv_nhwc"]},
+                    **{k: v for k, v in f.items() if k.startswith(
+                        ("layer_", "limit", "f32_"))}})
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in phase_s.items()))
     print(f"chip_smoke wall time: {time.perf_counter() - t_main:.1f} s "

@@ -23,7 +23,7 @@ import torch
 from torch_threads import torch_threads  # noqa: E402,F401  (autouse)
 
 from tpu3drec_torch import _nvcc
-from tpu3drec_torch.ops import attention, pallas_match, pallas_sample
+from tpu3drec_torch.ops import attention, conv, pallas_match, pallas_sample
 from tpu3drec_torch.ops import pallas_sgm, sift
 from tpu3drec_torch.utils.profiling import counters
 
@@ -52,6 +52,10 @@ WRAPPERS = {
                                                   torch.float32),
         _meta((1, 4, 2, 8), torch.float32), _meta((1, 4), torch.bool),
         1.0),
+    "conv_nhwc": lambda: conv.conv2d_nhwc(
+        _meta((1, 6, 8, 4), torch.float32), _meta((8, 4, 3, 3),
+                                                  torch.float32),
+        _meta((8,), torch.float32), True, True),
 }
 
 

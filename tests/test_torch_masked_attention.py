@@ -248,10 +248,12 @@ def test_cpu_route_launches_nothing(monkeypatch):
 ])
 def test_route_table(device, dtypes, autocast, tf32, want):
     if isinstance(want, str):
-        assert at.route(device, dtypes, autocast, tf32) == want
+        assert at.tf32.route("masked_attention", device, dtypes, autocast,
+                             tf32) == want
     else:
         with pytest.raises(want):
-            at.route(device, dtypes, autocast, tf32)
+            at.tf32.route("masked_attention", device, dtypes, autocast,
+                          tf32)
 
 
 @pytest.mark.parametrize("bad", ["rank3", "dh_mismatch", "batch_mismatch",

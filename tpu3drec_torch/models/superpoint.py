@@ -20,6 +20,12 @@ While a profiler records, `extract` runs under the spans
 `superpoint.encoder` (the VGG encoder), `superpoint.heads` (both
 heads, the cell softmax, the NMS) and `superpoint.select` (top-k,
 descriptor sampling), each opened by `utils/profiling.py:span`.
+
+The network runs channels-last: every convolution goes through
+`ops/conv.py:conv2d_nhwc` (on the card one launch of `csrc/conv_nhwc.cu`
+with its bias, ReLU and pool, 12 a forward), the cell softmax runs over
+the last axis and the pixel shuffle is a reshape of the (B, h, w, 64)
+probabilities.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from tpu3drec_torch.models._common import (
     activation_dtype as dtype_named, activations, l2_normalize, local_peaks,
     precision, top_k_pixels, unbatch,
 )
+from tpu3drec_torch.ops.conv import conv2d_nhwc
 from tpu3drec_torch.utils.profiling import span
 
 _CONVS = (("conv1a", 1, 64), ("conv1b", 64, 64), ("conv2a", 64, 64),
@@ -60,21 +67,25 @@ class SuperPointNet(nn.Module):
         self.convDa = nn.Conv2d(128, 256, 3, padding=1)
         self.convDb = nn.Conv2d(256, desc_dim, 1)
 
+    def _conv(self, name: str, x: torch.Tensor, relu: bool = False,
+              pool: bool = False) -> torch.Tensor:
+        conv = getattr(self, name)
+        return conv2d_nhwc(x, conv.weight, conv.bias, relu, pool)
+
     def forward(self, x: torch.Tensor):
-        # in-place ReLUs on each convolution's fresh output: the first
-        # level holds two full-resolution maps at a time, not three
+        # channels-last from end to end: each convolution writes its
+        # output once, with its bias, ReLU and pool (`ops/conv.py`)
         with span("superpoint.encoder"):
-            x = x.permute(0, 3, 1, 2)
             for i, (name, _, _) in enumerate(_CONVS):
-                x = F.relu(getattr(self, name)(x), inplace=True)
-                if i in (1, 3, 5):
-                    x = F.max_pool2d(x, 2, 2)
+                x = self._conv(name, x, relu=True, pool=i in (1, 3, 5))
         with span("superpoint.heads"):
-            semi = self.convPb(F.relu(self.convPa(x)))    # (B, 65, h, w)
-            prob = torch.softmax(semi.float(), dim=1)[:, :64]
-            heat = F.pixel_shuffle(prob, 8)[:, 0]         # cell c = 8 r + s
-            desc = self.convDb(F.relu(self.convDa(x))).float()
-            return heat, l2_normalize(desc, 1).permute(0, 2, 3, 1)
+            semi = self._conv("convPb", self._conv("convPa", x, relu=True))
+            prob = torch.softmax(semi.float(), dim=-1)[..., :64]
+            B, h, w, _ = prob.shape                       # cell c = 8 r + s
+            heat = prob.reshape(B, h, w, 8, 8).permute(0, 1, 3, 2, 4)
+            desc = self._conv("convDb", self._conv("convDa", x, relu=True))
+            return (heat.reshape(B, 8 * h, 8 * w),
+                    l2_normalize(desc.float(), -1))
 
 
 def _sample_descriptors(desc: torch.Tensor, xs: torch.Tensor,

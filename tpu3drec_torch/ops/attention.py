@@ -6,20 +6,10 @@ in two forms: the plain PyTorch composition and the one-pass kernel
 v (B, Nk, h, dh) and a key mask (B, Nk) of bools, and returns (B, Nq, h,
 dh). A masked key's score is replaced by -1e9, not left out, so a row whose
 keys are all masked comes out as the mean of v over all Nk keys. The route
-follows what the call can observe:
-
-- CPU tensors: the plain form;
-- CUDA float32 with `torch.backends.cuda.matmul.allow_tf32` on (the deep
-  models' `matmul_precision="default"`): the kernel with TF32 operands and
-  float32 softmax and accumulators, as cuBLAS computes the plain form then;
-- CUDA float32 with TF32 off (`"highest"`): the kernel in full float32,
-  each product split into three TF32 products (3xTF32);
-- CUDA bfloat16 operands or calls under autocast (the deep models'
-  `activation_dtype="bfloat16"`): the TF32 kernel on the operands read as
-  float32; a bfloat16 value is exact in TF32, so this is at least as
-  precise as bfloat16 GEMMs. The output is float32 on every kernel route;
-- anything else raises: another dtype or device, dh not a multiple of 8
-  up to 128, no keys.
+is `ops.tf32.route`'s table, on cuBLAS's TF32 flag
+(`torch.backends.cuda.matmul.allow_tf32`): the plain form on the CPU, the
+kernel in TF32 or, with the flag off, in 3xTF32 on the card. The kernel
+also raises on dh not a multiple of 8 up to 128 and on no keys.
 
 The kernel launches are counted on `masked_attention.launches`.
 """
@@ -31,6 +21,8 @@ import ctypes
 import torch
 
 from tpu3drec_torch import _nvcc
+from tpu3drec_torch.ops import tf32
+from tpu3drec_torch.ops.tf32 import LIMIT_FACTOR, split_round, tf32_round
 
 NEG = -1e9
 
@@ -44,23 +36,6 @@ def masked_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     att = att.masked_fill(~key_mask[:, None, None, :], NEG)
     att = torch.softmax(att, dim=-1)
     return torch.einsum("bhnm,bmhd->bnhd", att, v)
-
-
-def tf32_round(t: torch.Tensor) -> torch.Tensor:
-    """float32 `t` rounded to TF32 (10 stored mantissa bits; to nearest,
-    ties away from zero, as `cvt.rna.tf32.f32` rounds), held in float32."""
-    return t.contiguous().view(torch.int32).add(0x1000).bitwise_and(
-        -0x2000).view(torch.float32)
-
-
-def split_round(t: torch.Tensor) -> torch.Tensor:
-    """float32 `t` as the full float32 kernel reads it: hi + lo with
-    hi = tf32(t) and lo = tf32(t - hi), 22 significant bits."""
-    hi = tf32_round(t)
-    return hi + tf32_round(t - hi)
-
-
-LIMIT_FACTOR = 4.0
 
 
 def float64_answer_and_limit(q: torch.Tensor, k: torch.Tensor,
@@ -161,30 +136,16 @@ def _check(q, k, v, key_mask) -> None:
         raise ValueError("masked_attention: operands on several devices")
 
 
-def route(device_type: str, dtypes, autocast: bool, allow_tf32: bool) -> str:
-    """"plain", "kernel" (TF32) or "kernel_float32" (3xTF32) for a call on
-    `device_type` with operands of `dtypes`, CUDA autocast on or off and
-    the TF32 flag, by the table in the module docstring; raises on what
-    neither form takes."""
-    if _nvcc.route("masked_attention", device_type) == "plain":
-        return "plain"
-    if any(d not in (torch.float32, torch.bfloat16) for d in dtypes):
-        raise TypeError(f"masked_attention: need float32 or bfloat16 "
-                        f"operands, got {tuple(dtypes)}")
-    if allow_tf32 or autocast or torch.bfloat16 in dtypes:
-        return "kernel"
-    return "kernel_float32"
-
-
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      key_mask: torch.Tensor, scale: float) -> torch.Tensor:
-    """`softmax(where(key_mask, scale q.k^T, -1e9)) v` by the route the
-    module docstring gives."""
+    """`softmax(where(key_mask, scale q.k^T, -1e9)) v` by
+    `ops.tf32.route`'s table."""
     _check(q, k, v, key_mask)
     cuda = q.device.type == "cuda"
-    how = route(q.device.type, (q.dtype, k.dtype, v.dtype),
-                cuda and torch.is_autocast_enabled("cuda"),
-                torch.backends.cuda.matmul.allow_tf32)
+    how = tf32.route("masked_attention", q.device.type,
+                     (q.dtype, k.dtype, v.dtype),
+                     cuda and torch.is_autocast_enabled("cuda"),
+                     torch.backends.cuda.matmul.allow_tf32)
     if how == "plain":
         return masked_attention_plain(q, k, v, key_mask, scale)
     return masked_attention_kernel(q.float(), k.float(), v.float(), key_mask,
