@@ -20,17 +20,18 @@ PRECISIONS = ("default", "highest")
 def precision(matmul_precision: str):
     """The reference's `jax.default_matmul_precision` around a forward:
     "default" lets the card run float32 convolutions and matmuls in TF32
-    (the reduced-precision deep path); "highest" keeps full float32. The
-    package-wide TF32 flags are restored on exit, whatever happens inside.
-    On the CPU both are float32."""
+    (the reduced-precision deep path); "highest" turns both TF32 flags
+    off, for full float32 whatever the caller set. The package-wide TF32
+    flags are restored on exit, whatever happens inside. On the CPU both
+    are float32."""
     if matmul_precision not in PRECISIONS:
         raise ValueError(f"matmul_precision must be one of {PRECISIONS}, "
                          f"got {matmul_precision!r}")
     saved = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32)
-    if matmul_precision == "default":
-        torch.backends.cuda.matmul.allow_tf32 = True
-        torch.backends.cudnn.allow_tf32 = True
+    tf32 = matmul_precision == "default"
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
     try:
         yield
     finally:

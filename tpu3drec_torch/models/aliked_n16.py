@@ -23,15 +23,34 @@ K 3, M 16), with the reference's documented assumptions A1-A5:
   samples the feature map there, maps the samples with a 1x1 conv and
   sums W_m f_m with the learned `agg` (M, dim, dim).
 
-Every product here runs in full float32: the reference pins each of
+The network holds one full-resolution map: the four levels are
+written, a slice of images at a time, straight into one channels-last
+(B, H, W, dim) buffer (no list of levels, no concatenation); the score
+head reads each slice (its 1x1 layer as a product on the buffer, its
+3x3 layers on a small NCHW copy) before the slice is L2 normalised in
+place, and SDDH and DKD read the buffer as it is, padding included,
+without a copy. At 768x1024 that is 0.40 GB an image, where the four
+levels, their concatenation and its normalised copy were 1.33 GB. The
+backbone stays NCHW, where cuDNN's float32 convolutions are faster.
+
+Every product here runs in full float32, both TF32 flags off inside the
+forward (`_common.precision("highest")`): the reference pins each of
 them at `Precision.HIGHEST`, so its `matmul_precision` changes nothing,
 and the port's knob is accepted for the same signature.
+
+While a profiler records, the forward and `extract` open the spans
+`aliked.backbone` (blocks 1-4, with `aliked.deform` around each
+deformable conv inside it), `aliked.head` (the per-level convs, the
+upsampling into the map, the score head, the normalisation),
+`aliked.select` (NMS, top-k, DKD) and `aliked.sddh`
+(`utils/profiling.py:span`), and count `aliked.deform.samples` (B h w 9
+taps a deformable conv) and `aliked.sddh.samples` (B N M).
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,20 +60,25 @@ from torch import nn
 from tpu3drec_torch.core.types import DescriptorKind, Features
 from tpu3drec_torch.models import _params
 from tpu3drec_torch.models._common import (
-    l2_normalize, local_peaks, top_k_pixels, unbatch,
+    l2_normalize, local_peaks, precision, top_k_pixels, unbatch,
 )
+from tpu3drec_torch.utils.profiling import count, span, upload
 
 CFG_N16 = dict(c1=16, c2=32, c3=64, c4=128, dim=128, K=3, M=16)
 _BN_EPS = 1e-5
 _TAPS = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
+# the head writes the map this many pixels (images x H x W) at a time
+_HEAD_PIXELS = 1 << 23
 
 
-def _bilinear_map(img: torch.Tensor, px: torch.Tensor,
-                  py: torch.Tensor) -> torch.Tensor:
-    """Zero-padded bilinear samples of img (B, H, W, C) at float pixel
-    coordinates px, py (B, ...) -> (B, ..., C)."""
-    B, h, w, c = img.shape
-    flat = img.reshape(B, h * w, c)
+def _bilinear_map(img: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
+                  size: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Zero-padded bilinear samples of img (B, H, W, C), contiguous, at
+    float pixel coordinates px, py (B, ...) -> (B, ..., C). `size` (h, w)
+    bounds the map at img[:, :h, :w] (default the whole map)."""
+    B, hp, wp, c = img.shape
+    h, w = size or (hp, wp)
+    flat = img.reshape(B, hp * wp, c)
     rows = torch.arange(B, device=img.device)[:, None]
     x0 = torch.floor(px)
     y0 = torch.floor(py)
@@ -66,7 +90,7 @@ def _bilinear_map(img: torch.Tensor, px: torch.Tensor,
             xi = x0.long() + dx
             yi = y0.long() + dy
             ok = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
-            lin = torch.clamp(yi, 0, h - 1) * w + torch.clamp(xi, 0, w - 1)
+            lin = torch.clamp(yi, 0, h - 1) * wp + torch.clamp(xi, 0, w - 1)
             v = flat[rows, lin.reshape(B, -1)].reshape(lin.shape + (c,))
             out = out + v * (wy * wx * ok.to(img.dtype))[..., None]
     return out
@@ -74,7 +98,8 @@ def _bilinear_map(img: torch.Tensor, px: torch.Tensor,
 
 class _DeformConv3x3(nn.Module):
     """Deformable 3x3 conv (A1): an offset conv, then the kernel applied
-    to the nine taps sampled at their offsets. NCHW in and out."""
+    to the nine taps sampled at their offsets. NCHW in and out (the
+    output channels-last in memory)."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
@@ -84,17 +109,19 @@ class _DeformConv3x3(nn.Module):
 
     def forward(self, x):
         B, cin, h, w = x.shape
-        offs = self.offset_conv(x)                  # (B, 18, H, W): (dy, dx)
-        xh = x.permute(0, 2, 3, 1)
-        yy = torch.arange(h, dtype=x.dtype, device=x.device)[:, None]
-        xx = torch.arange(w, dtype=x.dtype, device=x.device)[None, :]
-        taps = torch.stack([
-            _bilinear_map(xh, xx + dx + offs[:, 2 * k + 1],
-                          yy + dy + offs[:, 2 * k])
-            for k, (dy, dx) in enumerate(_TAPS)], dim=3)   # (B, H, W, 9, Cin)
-        kern = self.weight.permute(2, 3, 1, 0).reshape(9 * cin, -1)
-        out = taps.reshape(B, h, w, 9 * cin) @ kern + self.bias
-        return out.permute(0, 3, 1, 2)
+        with span("aliked.deform"):
+            count("aliked.deform.samples", B * h * w * 9)
+            offs = self.offset_conv(x)              # (B, 18, H, W): (dy, dx)
+            xh = x.permute(0, 2, 3, 1).contiguous()
+            yy = torch.arange(h, dtype=x.dtype, device=x.device)[:, None]
+            xx = torch.arange(w, dtype=x.dtype, device=x.device)[None, :]
+            taps = torch.stack([                    # (B, H, W, 9, Cin)
+                _bilinear_map(xh, xx + dx + offs[:, 2 * k + 1],
+                              yy + dy + offs[:, 2 * k])
+                for k, (dy, dx) in enumerate(_TAPS)], dim=3)
+            kern = self.weight.permute(2, 3, 1, 0).reshape(9 * cin, -1)
+            out = taps.reshape(B, h, w, 9 * cin) @ kern + self.bias
+            return out.permute(0, 3, 1, 2)
 
 
 def _bn(ch):
@@ -144,12 +171,26 @@ def _interp_matrix(n_in: int, n_out: int) -> np.ndarray:
     return m
 
 
+_INTERP: Dict[tuple, torch.Tensor] = {}
+
+
+def _interp(n_in: int, n_out: int, device) -> torch.Tensor:
+    """`_interp_matrix` on `device`, uploaded once a shape and device."""
+    key = (n_in, n_out, str(device))
+    if key not in _INTERP:
+        _INTERP[key] = upload(_interp_matrix(n_in, n_out), device)
+    return _INTERP[key]
+
+
 def _upsample_ac(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """Bilinear, align_corners=True, as two products: (B, C, h, w) ->
-    (B, C, out_h, out_w)."""
-    mh = torch.from_numpy(_interp_matrix(x.shape[2], out_h)).to(x.device)
-    mw = torch.from_numpy(_interp_matrix(x.shape[3], out_w)).to(x.device)
-    return torch.matmul(torch.matmul(mh, x), mw.T)
+    """Bilinear, align_corners=True, as two products, rows then columns:
+    (B, h, w, C) -> (B, out_h, out_w, C), channels-last throughout."""
+    B, h, w, c = x.shape
+    mh = _interp(h, out_h, x.device)
+    mw = _interp(w, out_w, x.device)
+    rows = torch.matmul(mh, x.reshape(B, h, w * c))          # (B, H, w C)
+    return torch.matmul(mw, rows.reshape(B * out_h, w, c)).reshape(
+        B, out_h, out_w, c)
 
 
 class _SDDH(nn.Module):
@@ -163,18 +204,22 @@ class _SDDH(nn.Module):
         self.off2 = nn.Conv2d(2 * M, 2 * M, 1)
         self.sf = nn.Linear(dim, dim, bias=False)
 
-    def forward(self, feat: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
-        """feat (B, H, W, dim) L2 normalised, xy (B, N, 2) pixel keypoints
-        -> (B, N, dim) unit descriptors."""
-        B, h, w, dim = feat.shape
+    def forward(self, feat: torch.Tensor, xy: torch.Tensor,
+                size: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """feat (B, H, W, dim) L2 normalised and contiguous, xy (B, N, 2)
+        pixel keypoints -> (B, N, dim) unit descriptors. `size` (h, w)
+        bounds the map at feat[:, :h, :w] (default the whole map)."""
+        B, hp, wp, dim = feat.shape
+        h, w = size or (hp, wp)
         K, r = self.K, self.K // 2
+        count("aliked.sddh.samples", B * xy.shape[1] * self.M)
         xi = torch.clamp(torch.round(xy[..., 0]).long(), r, w - 1 - r)
         yi = torch.clamp(torch.round(xy[..., 1]).long(), r, h - 1 - r)
-        lin = torch.stack([(yi + dy) * w + (xi + dx)
+        lin = torch.stack([(yi + dy) * wp + (xi + dx)
                            for dy in range(-r, r + 1)
                            for dx in range(-r, r + 1)], dim=-1)   # (B, N, K*K)
         rows = torch.arange(B, device=feat.device)[:, None]
-        patches = feat.reshape(B, h * w, dim)[rows, lin.reshape(B, -1)]
+        patches = feat.reshape(B, hp * wp, dim)[rows, lin.reshape(B, -1)]
         patches = patches.reshape(B, -1, K * K * dim)
         # the K x K valid offset conv on a patch is one dense layer
         k1 = self.off1.weight.permute(2, 3, 1, 0).reshape(K * K * dim, -1)
@@ -182,7 +227,8 @@ class _SDDH(nn.Module):
         o = o @ self.off2.weight[:, :, 0, 0].T + self.off2.bias   # (B, N, 2M)
         off = o.reshape(B, -1, self.M, 2)                        # (x, y) (A4)
         samp = _bilinear_map(feat, xy[..., None, 0] + off[..., 0],
-                             xy[..., None, 1] + off[..., 1])     # (B, N, M, dim)
+                             xy[..., None, 1] + off[..., 1],
+                             (h, w))                    # (B, N, M, dim)
         samp = self.sf(samp)
         desc = samp.reshape(B, -1, self.M * dim) @ self.agg.reshape(
             self.M * dim, dim)
@@ -191,8 +237,8 @@ class _SDDH(nn.Module):
 
 class ALIKEDN16Net(nn.Module):
     """`forward((B, H, W, 3))`, H and W multiples of 32 -> (score
-    (B, H, W) in [0, 1], feature map (B, H, W, dim) L2 normalised): the
-    reference's `forward_dense` on a batch; `sddh` its
+    (B, H, W) in [0, 1], feature map (B, H, W, dim) L2 normalised,
+    contiguous): the reference's `forward_dense` on a batch; `sddh` its
     `sddh_descriptors`."""
 
     def __init__(self):
@@ -212,23 +258,51 @@ class ALIKEDN16Net(nn.Module):
         self.score4 = nn.Conv2d(4, 1, 3, padding=1)
         self.sddh = _SDDH(dim, c["K"], c["M"])
 
-    def forward(self, image: torch.Tensor):
-        x = image.permute(0, 3, 1, 2)
-        h, w = x.shape[2:]
+    def backbone(self, image: torch.Tensor) -> List[torch.Tensor]:
+        """(B, H, W, 3) -> the four levels, NCHW."""
+        x = image.permute(0, 3, 1, 2).contiguous()
         x1 = self.block1(x)
         x2 = self.block2(F.avg_pool2d(x1, 2))
         x3 = self.block3(F.avg_pool2d(x2, 4))
         x4 = self.block4(F.avg_pool2d(x3, 4))
-        levels = [F.selu(self.conv1(x1))] + [
-            _upsample_ac(F.selu(conv(xi)), h, w)
-            for conv, xi in ((self.conv2, x2), (self.conv3, x3),
-                             (self.conv4, x4))]
-        cat = torch.cat(levels, dim=1)                          # (B, dim, H, W)
-        s = F.selu(self.score1(cat))
-        s = F.selu(self.score2(s))
-        s = F.selu(self.score3(s))
-        score = torch.sigmoid(self.score4(s)[:, 0])
-        return score, l2_normalize(cat, 1).permute(0, 2, 3, 1)
+        return [x1, x2, x3, x4]
+
+    def head(self, levels: List[torch.Tensor]):
+        """The levels -> (score (B, H, W), the map (B, H, W, dim)), a
+        slice of images at a time: each level's 1x1 conv and SELU
+        upsampled into its quarter of the map's channels, the score head
+        on the slice (its 1x1 layer a product on the slice), then the
+        slice normalised in place."""
+        B, _, h, w = levels[0].shape
+        q = self.conv1.weight.shape[0]
+        feat = levels[0].new_empty(B, h, w, 4 * q)
+        score = levels[0].new_empty(B, h, w)
+        step = max(1, _HEAD_PIXELS // (h * w))
+        convs = (self.conv1, self.conv2, self.conv3, self.conv4)
+        for i0 in range(0, B, step):
+            sl = slice(i0, i0 + step)
+            for i, (conv, x) in enumerate(zip(convs, levels)):
+                a = F.selu(conv(x[sl])).permute(0, 2, 3, 1)
+                if i:
+                    a = _upsample_ac(a.contiguous(), h, w)
+                feat[sl, ..., i * q:(i + 1) * q] = a
+            f = feat[sl]
+            s = torch.matmul(f, self.score1.weight[:, :, 0, 0].T)
+            s = F.selu(s).permute(0, 3, 1, 2).contiguous()
+            s = F.selu(self.score2(s))
+            s = F.selu(self.score3(s))
+            score[sl] = torch.sigmoid(self.score4(s)[:, 0])
+            f.div_(torch.clamp(torch.linalg.vector_norm(f, dim=-1,
+                                                         keepdim=True),
+                               min=1e-12))
+        return score, feat
+
+    def forward(self, image: torch.Tensor):
+        with precision("highest"):
+            with span("aliked.backbone"):
+                levels = self.backbone(image)
+            with span("aliked.head"):
+                return self.head(levels)
 
 
 class ALIKEDN16:
@@ -267,36 +341,39 @@ class ALIKEDN16:
         x = F.pad(x, (0, (-w) % 32, 0, (-h) % 32))[..., None].expand(
             -1, -1, -1, 3)
         score, feat = self.net(x)
-        score = score[:, :h, :w]
-        vals, xs, ys = top_k_pixels(
-            local_peaks(score, self.nms_radius, -float("inf")),
-            self.max_features)
-        mask = vals > self.threshold
-        # DKD soft-argmax over the radius-2 window at temperature 0.1
-        r = 2
-        flat = score.flatten(1)
-        xi, yi = xs.long(), ys.long()
-        num_x = torch.zeros_like(xs)
-        num_y = torch.zeros_like(ys)
-        den = torch.zeros_like(xs)
-        for dy in range(-r, r + 1):
-            for dx in range(-r, r + 1):
-                yy = torch.clamp(yi + dy, 0, h - 1)
-                xx = torch.clamp(xi + dx, 0, w - 1)
-                sv = torch.exp(flat.gather(1, yy * w + xx) / 0.1)
-                num_x += sv * dx
-                num_y += sv * dy
-                den += sv
-        sub_x = torch.clamp(num_x / torch.clamp(den, min=1e-12), -r, r)
-        sub_y = torch.clamp(num_y / torch.clamp(den, min=1e-12), -r, r)
-        xy = torch.stack([xs + sub_x, ys + sub_y], -1)
-        desc = self.net.sddh(feat[:, :h, :w], xy)
-        f = Features(
-            xy=xy, response=torch.where(mask, vals, torch.zeros_like(vals)),
-            scale=torch.full_like(xs, 4.0), angle=torch.zeros_like(xs),
-            desc=desc * mask[..., None], mask=mask,
-            method="ALIKED", desc_kind=DescriptorKind.FLOAT.value,
-            image_shape=(h, w))
+        with span("aliked.select"):
+            score = score[:, :h, :w]
+            vals, xs, ys = top_k_pixels(
+                local_peaks(score, self.nms_radius, -float("inf")),
+                self.max_features)
+            mask = vals > self.threshold
+            # DKD soft-argmax over the radius-2 window at temperature 0.1
+            r = 2
+            flat = score.flatten(1)
+            xi, yi = xs.long(), ys.long()
+            num_x = torch.zeros_like(xs)
+            num_y = torch.zeros_like(ys)
+            den = torch.zeros_like(xs)
+            for dy in range(-r, r + 1):
+                for dx in range(-r, r + 1):
+                    yy = torch.clamp(yi + dy, 0, h - 1)
+                    xx = torch.clamp(xi + dx, 0, w - 1)
+                    sv = torch.exp(flat.gather(1, yy * w + xx) / 0.1)
+                    num_x += sv * dx
+                    num_y += sv * dy
+                    den += sv
+            sub_x = torch.clamp(num_x / torch.clamp(den, min=1e-12), -r, r)
+            sub_y = torch.clamp(num_y / torch.clamp(den, min=1e-12), -r, r)
+            xy = torch.stack([xs + sub_x, ys + sub_y], -1)
+        with span("aliked.sddh"), precision("highest"):
+            desc = self.net.sddh(feat, xy, (h, w))
+            f = Features(
+                xy=xy, response=torch.where(mask, vals,
+                                            torch.zeros_like(vals)),
+                scale=torch.full_like(xs, 4.0), angle=torch.zeros_like(xs),
+                desc=desc * mask[..., None], mask=mask,
+                method="ALIKED", desc_kind=DescriptorKind.FLOAT.value,
+                image_shape=(h, w))
         return unbatch(f) if single else f
 
 

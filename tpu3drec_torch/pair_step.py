@@ -16,11 +16,12 @@ kernel's launch alone (`ops/pallas_match.py:knn2_raw`). The counters
 `knn2.macs.*`, `knn2.bytes`, `upload.copies` and `upload.bytes` count
 the kernel's work and the host constants copied to the device.
 
-`make_deep_pair_fn` is the deep pair step beside it: SuperPoint on all
-2B images, LightGlue on all B pairs in one forward, the mutual,
-confidence-gated matches, and the same RANSAC stage, under the same
-three spans (inside them the models' `superpoint.*` and `lightglue.*`
-spans; `models/superpoint.py`, `models/lightglue.py`).
+`make_deep_pair_fn` is the deep pair step beside it: a learned extractor
+(SuperPoint or ALIKED-n16) on all 2B images, LightGlue on all B pairs
+in one forward, the mutual, confidence-gated matches, and the same
+RANSAC stage, under the same three spans (inside them the models'
+`superpoint.*` or `aliked.*` and `lightglue.*` spans;
+`models/superpoint.py`, `models/aliked_n16.py`, `models/lightglue.py`).
 """
 
 from __future__ import annotations
@@ -108,17 +109,22 @@ def make_pair_fn(max_features: int = 512, num_hypotheses: int = 128
     return pair_fn
 
 
-def make_deep_pair_fn(superpoint, lightglue, num_hypotheses: int = 256,
+def make_deep_pair_fn(extractor, lightglue, num_hypotheses: int = 256,
                       filter_threshold: float = 0.1
                       ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Returns `pair_fn(img1, img2, u=None)` over (B, H, W) float32 image
-    tensors in [0, 1]: SuperPoint + LightGlue + 4-point homography RANSAC.
+    tensors in [0, 1]: a learned extractor + LightGlue + 4-point
+    homography RANSAC.
 
-    `superpoint` and `lightglue` are the wrappers of `models/`
-    (`SuperPoint`, `LightGlue`) with their networks on the images' device,
-    built by `init_random`, from a state dict or from converted weights;
-    they carry the keypoint budget, NMS radius, detection threshold,
-    precision and activation type. Keypoints are normalised by the images' own (H, W).
+    `extractor` is any wrapper whose `extract((2B, H, W))` returns
+    batched `Features` padded to its keypoint budget, with descriptors
+    of D dimensions (`models/superpoint.py:SuperPoint`, 256;
+    `models/aliked_n16.py:ALIKEDN16`, 128); `lightglue` is
+    `models/lightglue.py:LightGlue` built with `input_dim` D. Both have
+    their networks on the images' device, built by `init_random`, from a
+    state dict or from converted weights, and carry the keypoint budget,
+    NMS radius, detection threshold, precision and activation type.
+    Keypoints are normalised by the images' own (H, W).
     Matches are LightGlue's mutual argmax above `filter_threshold`, then
     `deep_ransac`.
 
@@ -138,7 +144,7 @@ def make_deep_pair_fn(superpoint, lightglue, num_hypotheses: int = 256,
         _check_pair(img1, img2)
         B, h, w = img1.shape
         with span("pair_step.detect"):
-            f = superpoint.extract(torch.cat([img1, img2]))
+            f = extractor.extract(torch.cat([img1, img2]))
         xy, mask = f.xy, f.mask
         m1, m2 = mask[:B], mask[B:]
         with span("pair_step.match"):
