@@ -38,8 +38,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
      over all of them and the float64 plain form on the last two, which
      must also keep their bits launched alone, timed beside its bound,
      the plain form and cuDNN's convolution with bias, ReLU and pool, and
-     conv1b in full float32 (3xTF32); then both kernels' launches in one
-     deep pair-step batch at 768x1024;
+     conv1b in full float32 (3xTF32); `aliked_head` on the ALIKED cell's
+     64 images of 768x1024 in one launch (the backbone's levels under
+     random weights), its last two images against the float64 plain form
+     and the plain form in float32 within its limits, which must also
+     keep their bits launched alone, all 64 against the plain form, timed
+     beside its bound and the plain form, and its launches in one
+     `extract`; then the deep step's kernels' launches in one deep
+     pair-step batch at 768x1024;
   3. the main path: `make_pair_fn(max_features=2048, num_hypotheses=256)`
      on 96 pairs of 480x640 images, each a synthetic photo and a known
      similarity warp of it. Launch counts are read around one call, then
@@ -1384,10 +1390,14 @@ MA_DEEP_LAUNCHES = 36
 PEAK_TF32_OPS = 494.7e12
 
 
-def deep_step_launches(torch, dev):
-    """`masked_attention` and `conv_nhwc` launches in one batch of the deep
-    pair step at the deep cell's settings (random networks), checked
-    against `MA_DEEP_LAUNCHES` and `CONV_DEEP_LAUNCHES`."""
+def deep_step_launches(torch, dev, extractor="SuperPoint"):
+    """The kernels' launches in one batch of the deep pair step at a deep
+    cell's settings (random networks), against what that batch should
+    launch: with SuperPoint (`DEEP_LG`) `masked_attention`
+    `MA_DEEP_LAUNCHES` and `conv_nhwc` `CONV_DEEP_LAUNCHES` times; with
+    ALIKED-n16 (`DEEP_LG` at 128-d input, as the ALIKED cell builds it)
+    `masked_attention` `MA_DEEP_LAUNCHES` times and `aliked_head` once."""
+    from tpu3drec_torch.models.aliked_n16 import ALIKEDN16
     from tpu3drec_torch.models.lightglue import LightGlue
     from tpu3drec_torch.models.superpoint import SuperPoint
     from tpu3drec_torch.pair_step import make_deep_pair_fn
@@ -1395,35 +1405,40 @@ def deep_step_launches(torch, dev):
     B, n = MA_SHAPE[:2]
     h, w = MA_DEEP_HW
     gen = torch.Generator().manual_seed(SEED)
-    sp = SuperPoint(max_features=n)
-    sp.init_random(gen)
-    sp.net.to(dev)
-    lg = LightGlue(**DEEP_LG)
+    if extractor == "SuperPoint":
+        det, lg = SuperPoint(max_features=n), LightGlue(**DEEP_LG)
+        want = {"masked_attention": MA_DEEP_LAUNCHES,
+                "conv_nhwc": CONV_DEEP_LAUNCHES}
+    else:
+        det = ALIKEDN16(max_features=n, nms_radius=2, threshold=0.2)
+        lg = LightGlue(input_dim=128, **DEEP_LG)
+        want = {"masked_attention": MA_DEEP_LAUNCHES, "aliked_head": 1}
+    det.init_random(gen)
+    det.net.to(dev)
     lg.init_random(gen)
     lg.net.to(dev)
-    fn = make_deep_pair_fn(sp, lg)
+    fn = make_deep_pair_fn(det, lg)
     img1 = torch.tensor(np.stack([synthetic_photo(h, w, SEED + i)
                                   for i in range(B)]), device=dev)
     img2, _ = warp_batch(torch, img1, SEED + 1000)
     fn(img1, img2)
     torch.cuda.synchronize()
-    names = ("masked_attention", "conv_nhwc")
-    before = {k: counters().get(f"{k}.launches", 0) for k in names}
+    before = {k: counters().get(f"{k}.launches", 0) for k in want}
     t0 = time.perf_counter()
     fn(img1, img2)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = {k: counters().get(f"{k}.launches", 0) - before[k]
-              for k in names}
-    print(f"launches in one deep pair-step batch ({B} pairs of {h}x{w}): "
-          f"{counts} (expected masked_attention {MA_DEEP_LAUNCHES}, "
-          f"conv_nhwc {CONV_DEEP_LAUNCHES}); the batch took "
+              for k in want}
+    print(f"launches in one deep pair-step batch with {extractor} ({B} pairs "
+          f"of {h}x{w}): {counts} (expected {want}); the batch took "
           f"{dt * 1e3:.1f} ms")
-    for k, want in (("masked_attention", MA_DEEP_LAUNCHES),
-                    ("conv_nhwc", CONV_DEEP_LAUNCHES)):
-        if counts[k] != want:
-            fail(f"the deep pair step launched {k} {counts[k]} times, not "
-                 f"{want}")
+    for k, n_want in want.items():
+        if counts[k] != n_want:
+            fail(f"the deep pair step with {extractor} launched {k} "
+                 f"{counts[k]} times, not {n_want}")
+    del fn, img1, img2, det, lg
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -1732,6 +1747,110 @@ def check_conv_nhwc(torch, dev):
                 layer_bound_ms={r["name"]: r["bound_ms"] for r in rows},
                 f32_ms=f32_ms, f32_max_abs_err=f32_err,
                 f32_batch_err=f32_err_batch)
+
+
+# `aliked_head`: the ALIKED cell's batch (both views of 32 pairs of
+# 768x1024) in one launch
+ALIKED_IMAGES = 64
+ALIKED_HW = (768, 1024)
+
+
+def check_aliked_head(torch, dev):
+    """`aliked_head` on the ALIKED cell's batch, 64 images of 768x1024 in
+    one launch as the main path gives it: the backbone's levels of 64
+    synthetic photos under random ALIKED-n16 weights. Its last two images
+    bit-identical to the same two launched alone and, on those two, within
+    `head_float64_answer_and_limit`'s limits of the float64 plain form and
+    of the plain form in float32 (the map, score1's output, the score); all
+    64 within twice the limits of the plain form. The kernel timed (CUDA
+    events) as the head launches it (`_launch_head`) beside its bound (the levels read once, the map and score1's
+    output written once, at 3.35 TB/s; its multiply-adds at the float32
+    peak, the larger), the whole head (the kernel, score2-4 and the
+    sigmoid) beside the plain form; no one PyTorch call computes it. Also
+    the launches of one `extract` of the batch. Returns the kernel line
+    fields."""
+    from tpu3drec_torch.models import aliked_n16 as tn16
+    from tpu3drec_torch.models._common import precision
+    from tpu3drec_torch.utils.profiling import counters
+    h, w = ALIKED_HW
+    al = tn16.ALIKEDN16(max_features=2048, nms_radius=2, threshold=0.2)
+    net = al.init_random(torch.Generator().manual_seed(SEED)).to(dev)
+    imgs = torch.tensor(np.stack([synthetic_photo(h, w, SEED + i)
+                                  for i in range(ALIKED_IMAGES)]), device=dev)
+    before = counters().get("aliked_head.launches", 0)
+    al.extract(imgs)
+    torch.cuda.synchronize()
+    launches = counters().get("aliked_head.launches", 0) - before
+    with torch.no_grad(), precision("highest"):
+        levels = net.backbone(imgs[..., None].expand(-1, -1, -1, 3))
+    del imgs
+    torch.cuda.empty_cache()
+    B = ALIKED_IMAGES
+    with torch.no_grad(), precision("highest"):
+        ms = cuda_ms(torch, lambda: net._launch_head(levels))
+        feat, s8 = net._launch_head(levels)
+        tail_ms = cuda_ms(torch, lambda: net._score_tail(s8), reps=2)
+        del feat, s8
+        torch.cuda.empty_cache()
+        head_ms = cuda_ms(torch, lambda: net.head_kernel(levels), reps=2)
+        plain_ms = cuda_ms(torch, lambda: net.head_plain(levels), reps=2)
+        torch.cuda.empty_cache()
+        full = net.head_kernel(levels)
+        last2 = [x[-2:].contiguous() for x in levels]
+        alone = net.head_kernel(last2)
+        torch.cuda.synchronize()
+        names = ("score", "feat", "s8")
+        for k, a, b in zip(names, full, alone):
+            if not same_bits(torch, a[-2:].contiguous(), b):
+                fail(f"aliked_head ({k}): the batch's last two images differ "
+                     f"from the same two launched alone")
+        want, limit = tn16.head_float64_answer_and_limit(net, last2)
+        err = {k: float((b.double() - want[k]).abs().max())
+               for k, b in zip(names, alone)}
+        del want
+        torch.cuda.empty_cache()
+        plain = net.head_plain(levels)
+        err_plain = {k: float((b - p[-2:]).abs().max())
+                     for k, b, p in zip(names, alone, plain)}
+        err_batch = {k: max_abs_diff(a, p)
+                     for k, a, p in zip(names, full, plain)}
+    del full, plain, alone, levels, last2
+    torch.cuda.empty_cache()
+    for k in names:
+        if err[k] > limit[k] or err_plain[k] > limit[k] \
+                or err_batch[k] > 2 * limit[k]:
+            fail(f"aliked_head ({k}): the last two images are {err[k]:.3e} "
+                 f"from float64 and {err_plain[k]:.3e} from the plain form "
+                 f"(limit {limit[k]:.3e}); all {B} are {err_batch[k]:.3e} "
+                 f"from the plain form (limit {2 * limit[k]:.3e})")
+    P = B * h * w
+    sizes = [(16, 1), (32, 2), (64, 8), (128, 32)]
+    read = sum(B * c * (h // f) * (w // f) for c, f in sizes)
+    moved = 4.0 * (read + P * (128 + 8))
+    fmas = (P * (16 * 32 + 3 * 32 * 2 + 128 * 8 + 128)
+            + sum(B * (h // f) * (w // f) * c * 32 for c, f in sizes[1:])
+            + sum(B * h * (w // f) * 32 * 2 for _, f in sizes[1:]))
+    bytes_s, ops_s = moved / PEAK_BYTES_PER_S, 2 * fmas / PEAK_F32_OPS
+    bound = max(bytes_s, ops_s) * 1e3
+    by = "bytes" if bytes_s >= ops_s else "operations"
+    print(f"aliked_head ({B} x {h}x{w}): {ms:.4f} ms, "
+          f"{moved / ms / 1e9:.3f} TB/s, {2 * fmas / ms / 1e9:.1f} TFLOP/s; "
+          f"bound {bound:.4f} ms ({by}; {bound / ms * 100:.1f}% of it; "
+          f"{moved / 1e9:.2f} GB, {2 * fmas / 1e12:.3f} TFLOP); the head "
+          f"with score2-4 {head_ms:.3f} ms (score2-4 and the sigmoid "
+          f"{tail_ms:.3f}); plain head {plain_ms:.3f} ms; last two images "
+          + "; ".join(f"{k} {err[k]:.3e} from float64 and {err_plain[k]:.3e} "
+                      f"from the plain form (limit {limit[k]:.3e}), all {B} "
+                      f"{err_batch[k]:.3e}" for k in names)
+          + f"; launches in one extract of the batch: {launches}")
+    if launches != 1:
+        fail(f"one ALIKED extract launched aliked_head {launches} times, "
+             f"not once")
+    return dict(max_abs_err=max(err.values()), limit=limit, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=None, launches=launches, head_ms=head_ms,
+                tail_ms=tail_ms, err=err, err_plain=err_plain,
+                batch_err=err_batch)
 
 
 def dense_folder(h, w, seed):
@@ -3848,15 +3967,19 @@ def deep_folder_engine(torch, card, dev, tmp, names):
 
 def deep_per_pair(torch, dev, images, pairs, stack, nets):
     """LightGlue on the per-pair path with SuperPoint, DISK and
-    ALIKED-n16; its ms per pair at 2,048 keypoints, and a profiled call."""
+    ALIKED-n16; its ms per pair at 2,048 keypoints, and a profiled call.
+    Returns the `aliked_head` launches of the pairs' matching, which has
+    to launch it."""
     import copy
     import tpu3drec_torch as tv
     from tpu3drec_torch.models import lightglue
+    from tpu3drec_torch.utils.profiling import counters
     pp = tv.create_pipeline(DEEP_PRESET, {
         "methods": list(DEEP_PERPAIR_METHODS),
         "matcher_config": {m: "lightglue" for m in DEEP_PERPAIR_METHODS}},
         device=dev)
     counts = {m: [] for m in DEEP_PERPAIR_METHODS}
+    before = counters().get("aliked_head.launches", 0)
     t0 = time.perf_counter()
     for n1, n2 in pairs[:DEEP_PERPAIR]:
         res = pp.match(images[n1], images[n2], n1, n2)
@@ -3868,10 +3991,14 @@ def deep_per_pair(torch, dev, images, pairs, stack, nets):
                      f"{r.matcher_used!r}")
             counts[m].append(r.num_raw_matches)
     torch.cuda.synchronize()
+    head_launches = counters().get("aliked_head.launches", 0) - before
     print(f"per-pair path, {DEEP_PERPAIR} pairs x {len(DEEP_PERPAIR_METHODS)} "
           f"methods with LightGlue ({time.perf_counter() - t0:.2f} s): "
           "matches above confidence 0.1 "
-          + "; ".join(f"{m} {v}" for m, v in counts.items()))
+          + "; ".join(f"{m} {v}" for m, v in counts.items())
+          + f"; aliked_head launches {head_launches}")
+    if head_launches < 1:
+        fail("the per-pair path's ALIKED-n16 never launched aliked_head")
     f, _ = deep_extract(torch, "SuperPoint", copy.deepcopy(
         nets["SuperPoint"]).to(dev), stack[:2], "default")
     fa = [f.replace(**{k: getattr(f, k)[i] for k in (
@@ -3883,6 +4010,7 @@ def deep_per_pair(torch, dev, images, pairs, stack, nets):
           f"events)")
     profile_call(torch, lambda: lightglue.match_features_lightglue(*fa),
                  "lightglue.", top=8)
+    return head_launches
 
 
 def lg_mutual_counts(torch, dev, imgs, nets, precision):
@@ -3996,8 +4124,8 @@ def run_deep(torch, card, dev, tmp, names):
     lightglue._LG_CACHE.clear()
     try:
         eng = deep_folder_engine(torch, card, dev, tmp, names)
-        deep_per_pair(torch, dev, eng["images"], eng["pairs"], eng["stack"],
-                      nets)
+        head_launches = deep_per_pair(torch, dev, eng["images"], eng["pairs"],
+                                      eng["stack"], nets)
         deep_card_vs_cpu(torch, dev, eng["stack"][:DEEP_PERPAIR + 1], nets)
     finally:
         models.WEIGHTS_DIR = saved
@@ -4009,7 +4137,8 @@ def run_deep(torch, card, dev, tmp, names):
         knn2.update({f"deep_{m.lower()}_{k}": v for k, v in r.items()})
     print(f"deep phase on {card}: {time.perf_counter() - t_phase:.1f} s")
     return dict(launches=eng["launches"], knn2=knn2,
-                launches_by_method=eng["launches_by_method"])
+                launches_by_method=eng["launches_by_method"],
+                aliked_head_launches=head_launches)
 
 
 # phase 11: the user surface
@@ -5207,7 +5336,9 @@ def main():
     torch.cuda.synchronize()
     fields["masked_attention"] = check_masked_attention(torch, dev)
     fields["conv_nhwc"] = check_conv_nhwc(torch, dev)
+    fields["aliked_head"] = check_aliked_head(torch, dev)
     deep_launches = deep_step_launches(torch, dev)
+    aliked_launches = deep_step_launches(torch, dev, "ALIKED")
 
     # ---- 3. the main path at full size
     pair_fn = tpu3drec_torch.make_pair_fn(max_features=MAX_FEATURES,
@@ -5384,7 +5515,9 @@ def main():
                     "bound_by": f["bound_by"],
                     "library_ms": f["library_ms"],
                     "launches_by_path": {
-                        "deep_pair_step": deep_launches["masked_attention"]},
+                        "deep_pair_step": deep_launches["masked_attention"],
+                        "deep_pair_step_aliked":
+                            aliked_launches["masked_attention"]},
                     **{k: v for k, v in f.items() if k.startswith(
                         ("kernel_ms", "cross_", "limit", "f32_"))}})
     f = fields["conv_nhwc"]
@@ -5400,6 +5533,21 @@ def main():
                         "deep_pair_step": deep_launches["conv_nhwc"]},
                     **{k: v for k, v in f.items() if k.startswith(
                         ("layer_", "limit", "f32_"))}})
+    f = fields["aliked_head"]
+    kernels.append({"name": "aliked_head", "route": "cuda",
+                    "source": "tpu3drec_torch/csrc/aliked_head.cu",
+                    "replaces": None,
+                    "launches": aliked_launches["aliked_head"],
+                    "max_abs_err": f["max_abs_err"], "ms": f["ms"],
+                    "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+                    "bound_by": f["bound_by"], "library_ms": None,
+                    "launches_by_path": {
+                        "deep_pair_step_aliked": aliked_launches["aliked_head"],
+                        "aliked_extract": f["launches"],
+                        "deep_per_pair_aliked": deep["aliked_head_launches"]},
+                    **{k: v for k, v in f.items() if k in (
+                        "limit", "head_ms", "tail_ms", "err", "err_plain",
+                        "batch_err")}})
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in phase_s.items()))
     print(f"chip_smoke wall time: {time.perf_counter() - t_main:.1f} s "

@@ -20,7 +20,18 @@ its matchability within Z_TOL (as `test_torch_deep_pair_step.py`).
 Keypoints are the same peaks but for ties within SCORE_TOL. Planted
 faults put the gaps 100 times or more above the bars.
 
-Tests marked `card` run the step on a CUDA card at the published size
+The head (`ALIKEDN16Net.head`) takes its plain form on the CPU, whose
+bits are those of the composition it had before its kernel; the kernel's
+tap tables hold exactly the two non-zero entries of each row of the
+interpolation matrices, and a segment's taps fit what the kernel holds; the
+head rejects levels that are not float32 or not at H and W multiples of
+32; and `head_float64_answer_and_limit`'s limit, which the card tests use,
+rejects shifted taps, half-pixel upsampling, dropped SELUs and a norm off
+by 2^-10.
+
+Tests marked `card` run the step on a CUDA card at the published size,
+and the head's kernel `csrc/aliked_head.cu` against the float64 plain form
+and the plain form in float32
 (`python -m pytest --noconftest -p no:cacheprovider -m card
 tests/test_torch_aliked_lightglue.py`; the card's machine has no JAX)
 and skip without one.
@@ -31,8 +42,10 @@ import inspect
 import os
 import sys
 
+import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 from torch_threads import torch_threads  # noqa: F401  (autouse)
 
@@ -42,7 +55,7 @@ import plain_aliked as ref  # noqa: E402
 import plain_superpoint_lightglue as lgref  # noqa: E402
 from tpu3drec_torch.models import aliked_n16 as tn16  # noqa: E402
 from tpu3drec_torch.models._common import (  # noqa: E402
-    local_peaks, top_k_pixels,
+    local_peaks, precision, top_k_pixels,
 )
 from tpu3drec_torch.models.lightglue import (  # noqa: E402
     LightGlue, LightGlueNet,
@@ -495,6 +508,192 @@ def test_the_forward_runs_in_full_float32(nets, images, monkeypatch):
          torch.backends.cudnn.allow_tf32) = saved
 
 
+# ---------------------------------------------------------------- the head
+
+HEAD_LAUNCHES = "aliked_head.launches"
+
+
+def _head_launches():
+    return profiling.counters().get(HEAD_LAUNCHES, 0)
+
+
+def _same_bits(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def _old_interp_matrix(n_in, n_out):
+    """The interpolation matrix as the head built it before its taps
+    were tabled."""
+    if n_in == 1:
+        return np.ones((n_out, 1), np.float32)
+    src = np.linspace(0.0, n_in - 1.0, n_out)
+    i0 = np.clip(np.floor(src).astype(int), 0, n_in - 2)
+    f = (src - i0).astype(np.float32)
+    m = np.zeros((n_out, n_in), np.float32)
+    m[np.arange(n_out), i0] = 1.0 - f
+    m[np.arange(n_out), i0 + 1] += f
+    return m
+
+
+def _old_head(net, levels):
+    """The head's composition before its kernel, with its own matrices:
+    what the plain form must give, bit for bit."""
+    def upsample(x, out_h, out_w):
+        B, h, w, c = x.shape
+        mh = torch.from_numpy(_old_interp_matrix(h, out_h))
+        mw = torch.from_numpy(_old_interp_matrix(w, out_w))
+        rows = torch.matmul(mh, x.reshape(B, h, w * c))
+        return torch.matmul(mw, rows.reshape(B * out_h, w, c)).reshape(
+            B, out_h, out_w, c)
+
+    B, _, h, w = levels[0].shape
+    q = net.conv1.weight.shape[0]
+    feat = levels[0].new_empty(B, h, w, 4 * q)
+    score = levels[0].new_empty(B, h, w)
+    step = max(1, tn16._HEAD_PIXELS // (h * w))
+    convs = (net.conv1, net.conv2, net.conv3, net.conv4)
+    for i0 in range(0, B, step):
+        sl = slice(i0, i0 + step)
+        for i, (conv, x) in enumerate(zip(convs, levels)):
+            a = F.selu(conv(x[sl])).permute(0, 2, 3, 1)
+            if i:
+                a = upsample(a.contiguous(), h, w)
+            feat[sl, ..., i * q:(i + 1) * q] = a
+        f = feat[sl]
+        s = torch.matmul(f, net.score1.weight[:, :, 0, 0].T)
+        s = F.selu(s).permute(0, 3, 1, 2).contiguous()
+        s = F.selu(net.score2(s))
+        s = F.selu(net.score3(s))
+        score[sl] = torch.sigmoid(net.score4(s)[:, 0])
+        f.div_(torch.clamp(torch.linalg.vector_norm(f, dim=-1, keepdim=True),
+                           min=1e-12))
+    return score, feat
+
+
+def _levels(net, images):
+    with torch.no_grad(), precision("highest"):
+        return net.backbone(images[..., None].expand(-1, -1, -1, 3))
+
+
+@pytest.mark.parametrize("n_in,n_out", [(1, 32), (2, 64), (15, 480),
+                                        (24, 768), (96, 768), (384, 768)])
+def test_tap_table_holds_the_matrix_entries(n_in, n_out):
+    """Each output's (i0, i1, w0, w1) are the two entries of its row of
+    the interpolation matrix, bit for bit, and the row has no others; the
+    matrix is the one the head built before (levels of one sample, 15 and
+    24 rows at 1/32, 96 at 1/8, 384 at 1/2)."""
+    want = _old_interp_matrix(n_in, n_out)
+    assert _same_bits(torch.from_numpy(tn16._interp_matrix(n_in, n_out)),
+                      torch.from_numpy(want))
+    t = tn16.tap_table([n_in], n_out)
+    assert t.shape == (n_out, 4) and t.dtype == np.int32
+    i0, i1 = t[:, 0], t[:, 1]
+    assert i0.min() >= 0 and i1.max() <= n_in - 1
+    assert ((i1 == i0 + 1) if n_in > 1 else (i1 == i0)).all()
+    rows = np.arange(n_out)
+    m = np.zeros_like(want)
+    m[rows, i0] += t[:, 2].view(np.float32)
+    m[rows, i1] += t[:, 3].view(np.float32)
+    assert _same_bits(torch.from_numpy(m), torch.from_numpy(want))
+    tapped = np.zeros(want.shape, bool)
+    tapped[rows, i0] = tapped[rows, i1] = True
+    assert not ((want != 0) & ~tapped).any()
+
+
+@pytest.mark.parametrize("s", [2, 8, 32])
+def test_a_segment_taps_what_the_kernel_holds(s):
+    """The kernel holds, for a segment of 32 output columns, at most
+    31 // s + 3 columns of a level at 1/s (from the first column's first
+    tap to the last one's second; `csrc/aliked_head.cu:Level`): every W
+    multiple of 32 up to 4096 stays inside."""
+    for n in range(32, 4097, 32):
+        t = tn16.tap_table([n // s], n)
+        span = t[31::32, 1] - t[0::32, 0] + 1
+        assert span.max() <= 31 // s + 3, n
+
+
+@pytest.mark.parametrize("pixels", [tn16._HEAD_PIXELS, H * W])
+def test_plain_head_keeps_the_old_bits(nets, images, monkeypatch, pixels):
+    """On the CPU the head takes its plain form, which gives the old
+    composition's bits, whole or a slice of images at a time, and
+    launches nothing."""
+    def no_kernel(*args, **kwargs):
+        raise AssertionError("the CPU route launched the kernel")
+
+    monkeypatch.setattr(tn16, "_HEAD_PIXELS", pixels)
+    monkeypatch.setattr(tn16.ALIKEDN16Net, "head_kernel", no_kernel)
+    net = nets[0].net
+    levels = _levels(net, images[:3])
+    before = _head_launches()
+    with torch.no_grad():
+        got = net.head(levels)
+        want = _old_head(net, levels)
+    assert _head_launches() == before
+    assert len(got) == 2
+    for a, b in zip(got, want):
+        assert _same_bits(a, b)
+
+
+@pytest.mark.parametrize("bad", ["float64", "bfloat16", "h_not_32",
+                                 "w_not_32", "level_shape", "three_levels"])
+def test_head_rejects(nets, bad):
+    """The head takes four float32 levels shaped as the backbone gives
+    them at H and W multiples of 32, and raises on anything else before
+    any work, on any device."""
+    h, w = {"h_not_32": (48, 64), "w_not_32": (64, 80)}.get(bad, (64, 96))
+    levels = [torch.zeros(1, c, h // f, w // f)
+              for c, f in ((16, 1), (32, 2), (64, 8), (128, 32))]
+    if bad in ("float64", "bfloat16"):
+        levels = [x.to(getattr(torch, bad)) for x in levels]
+    elif bad == "level_shape":
+        levels[2] = torch.zeros(1, 64, h // 4, w // 4)
+    elif bad == "three_levels":
+        levels = levels[:3]
+    before = _head_launches()
+    with pytest.raises(TypeError if bad in ("float64", "bfloat16")
+                       else ValueError, match="^aliked_head: "):
+        nets[0].net.head(levels)
+    assert _head_launches() == before
+
+
+HEAD_FAULTS = ["none", "taps_shifted", "half_pixel", "selu_dropped",
+               "norm_scaled"]
+
+
+@pytest.mark.parametrize("fault", HEAD_FAULTS)
+def test_head_limit_rejects_planted_faults(nets, images, monkeypatch, fault):
+    """On the CPU, with the plain form in float32 standing in for the
+    kernel: within `head_float64_answer_and_limit`'s limits on the map,
+    score1's output and the score, and each planted fault outside one of
+    them at least: the interpolation's taps moved by one output row,
+    half-pixel (align_corners=False) upsampling, every SELU dropped, the
+    map's norm off by a factor 1 + 2^-10."""
+    net = nets[0].net
+    levels = _levels(net, images[:2])
+    with torch.no_grad():
+        want, limit = tn16.head_float64_answer_and_limit(net, levels)
+        if fault == "taps_shifted":
+            monkeypatch.setattr(tn16, "_interp", lambda n_in, n_out, dev:
+                                torch.from_numpy(np.roll(tn16._interp_matrix(
+                                    n_in, n_out), 1, 0)).to(dev))
+        elif fault == "half_pixel":
+            monkeypatch.setattr(tn16, "_upsample_ac", lambda x, h, w:
+                                F.interpolate(x.permute(0, 3, 1, 2), (h, w),
+                                              mode="bilinear",
+                                              align_corners=False)
+                                .permute(0, 2, 3, 1))
+        elif fault == "selu_dropped":
+            monkeypatch.setattr(tn16.F, "selu", lambda x: x)
+        with precision("highest"):
+            got = dict(zip(("score", "feat", "s8"), net.head_plain(levels)))
+    if fault == "norm_scaled":
+        got["feat"] = got["feat"] * (1 + 2.0 ** -10)
+    err = {k: float((got[k].double() - want[k]).abs().max()) for k in want}
+    outside = [k for k in want if err[k] > limit[k]]
+    assert bool(outside) == (fault != "none"), (err, limit)
+
+
 # ---------------------------------------------------------------- the card
 
 @pytest.fixture
@@ -571,3 +770,50 @@ def test_card_32_pairs_fit(card):
     assert out["num_matches"].shape == (32,)
     assert torch.isfinite(out["homography"]).all()
     assert peak < 64e9, peak
+
+
+HEAD_SHAPES = [(3, 768, 1024), (2, 480, 640), (1, 32, 32)]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("b,h,w", HEAD_SHAPES)
+def test_card_head_against_float64_and_plain(card, b, h, w):
+    """The head's kernel on the backbone's levels of b photos of h x w
+    (the cell's 768x1024; the folder's 480x640, whose level 4 is 15x20;
+    32x32, whose levels 3 and 4 have 4 and 1 samples a side) against the
+    float64 plain form within `head_float64_answer_and_limit`'s limits,
+    and against the plain form in float32 on the card within the same:
+    the map, score1's output and the score. Two launches give the same
+    bits."""
+    al, _, _, _ = _card_nets(card, 33)
+    net = al.net
+    levels = _levels(net, _photos(9, h, w, 2 * b)[0].to(card))
+    before = _head_launches()
+    with torch.no_grad():
+        out = net.head_kernel(levels)
+        again = net.head_kernel(levels)
+        torch.cuda.synchronize()
+        assert _head_launches() - before == 2
+        with precision("highest"):
+            plain = net.head_plain(levels)
+        want, limit = tn16.head_float64_answer_and_limit(net, levels)
+    for k, got, twice, pl in zip(("score", "feat", "s8"), out, again, plain):
+        assert got.shape == pl.shape and got.is_contiguous(), k
+        assert torch.isfinite(got).all(), k
+        assert _same_bits(got, twice), f"{k}: two launches differ"
+        err = float((got.double() - want[k]).abs().max())
+        assert err <= limit[k], f"{k}: {err:.3e} from float64, limit " \
+                                f"{limit[k]:.3e}"
+        err_plain = float((got - pl).abs().max())
+        assert err_plain <= limit[k], f"{k}: {err_plain:.3e} from the " \
+                                      f"plain form, limit {limit[k]:.3e}"
+
+
+@pytest.mark.card
+def test_card_extract_launches_the_head(card):
+    """One `extract` on the card launches the head's kernel once."""
+    al, _, _, _ = _card_nets(card, 34)
+    before = _head_launches()
+    al.extract(_photos(10, 96, 128, 2)[0].to(card))
+    torch.cuda.synchronize()
+    assert _head_launches() == before + 1

@@ -25,6 +25,7 @@ from torch_threads import torch_threads  # noqa: E402,F401  (autouse)
 from tpu3drec_torch import _nvcc
 from tpu3drec_torch.ops import attention, conv, pallas_match, pallas_sample
 from tpu3drec_torch.ops import pallas_sgm, sift
+from tpu3drec_torch.models.aliked_n16 import ALIKEDN16Net
 from tpu3drec_torch.utils.profiling import counters
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -56,6 +57,9 @@ WRAPPERS = {
         _meta((1, 6, 8, 4), torch.float32), _meta((8, 4, 3, 3),
                                                   torch.float32),
         _meta((8,), torch.float32), True, True),
+    "aliked_head": lambda: ALIKEDN16Net().head(
+        [_meta((1, c, 32 // f, 64 // f), torch.float32)
+         for c, f in ((16, 1), (32, 2), (64, 8), (128, 32))]),
 }
 
 

@@ -23,15 +23,21 @@ K 3, M 16), with the reference's documented assumptions A1-A5:
   samples the feature map there, maps the samples with a 1x1 conv and
   sums W_m f_m with the learned `agg` (M, dim, dim).
 
-The network holds one full-resolution map: the four levels are
-written, a slice of images at a time, straight into one channels-last
-(B, H, W, dim) buffer (no list of levels, no concatenation); the score
-head reads each slice (its 1x1 layer as a product on the buffer, its
-3x3 layers on a small NCHW copy) before the slice is L2 normalised in
-place, and SDDH and DKD read the buffer as it is, padding included,
-without a copy. At 768x1024 that is 0.40 GB an image, where the four
-levels, their concatenation and its normalised copy were 1.33 GB. The
-backbone stays NCHW, where cuDNN's float32 convolutions are faster.
+The network holds one full-resolution map, channels-last (B, H, W,
+dim), which SDDH and DKD read as it is, padding included, without a
+copy. The head (`ALIKEDN16Net.head`) has two forms. The plain form
+(`head_plain`, on CPU tensors) writes the four levels, a slice of images
+at a time, straight into the map (no list of levels, no concatenation);
+score1 reads each slice (a product on the map) into a small NCHW output
+before the slice is L2 normalised in place. The kernel (`head_kernel`,
+on CUDA float32 tensors; `csrc/aliked_head.cu`) computes the four
+levels' 1x1 convs and SELUs, the upsampling, score1 and its SELU and the
+normalisation in one launch, writing the normalised map and score1's
+output once. In both, the score head's 3x3 layers and the sigmoid then
+run on score1's output a slice of images at a time. At 768x1024 the map
+is 0.40 GB an image, where the four levels, their concatenation and its
+normalised copy were 1.33 GB. The backbone stays NCHW, where cuDNN's
+float32 convolutions are faster.
 
 Every product here runs in full float32, both TF32 flags off inside the
 forward (`_common.precision("highest")`): the reference pins each of
@@ -44,11 +50,14 @@ deformable conv inside it), `aliked.head` (the per-level convs, the
 upsampling into the map, the score head, the normalisation),
 `aliked.select` (NMS, top-k, DKD) and `aliked.sddh`
 (`utils/profiling.py:span`), and count `aliked.deform.samples` (B h w 9
-taps a deformable conv) and `aliked.sddh.samples` (B N M).
+taps a deformable conv) and `aliked.sddh.samples` (B N M). The head's
+kernel launches are counted on `aliked_head.launches`, always.
 """
 
 from __future__ import annotations
 
+import copy
+import ctypes
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
@@ -57,18 +66,28 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpu3drec_torch import _nvcc
 from tpu3drec_torch.core.types import DescriptorKind, Features
 from tpu3drec_torch.models import _params
 from tpu3drec_torch.models._common import (
     l2_normalize, local_peaks, precision, top_k_pixels, unbatch,
 )
+from tpu3drec_torch.ops.tf32 import LIMIT_FACTOR
 from tpu3drec_torch.utils.profiling import count, span, upload
 
 CFG_N16 = dict(c1=16, c2=32, c3=64, c4=128, dim=128, K=3, M=16)
 _BN_EPS = 1e-5
 _TAPS = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
-# the head writes the map this many pixels (images x H x W) at a time
+# the plain head writes the map, and both forms run the score head's 3x3
+# layers, this many pixels (images x H x W) at a time
 _HEAD_PIXELS = 1 << 23
+
+
+def _slices(B: int, h: int, w: int):
+    """Slices of B images of h x w, _HEAD_PIXELS pixels or one image
+    each."""
+    step = max(1, _HEAD_PIXELS // (h * w))
+    return [slice(i0, i0 + step) for i0 in range(0, B, step)]
 
 
 def _bilinear_map(img: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
@@ -158,16 +177,26 @@ class _ResBlock(nn.Module):
         return F.selu(y + self.downsample(x))
 
 
-def _interp_matrix(n_in: int, n_out: int) -> np.ndarray:
-    """Align-corners linear interpolation from n_in to n_out samples."""
+def _interp_taps(n_in: int, n_out: int):
+    """Align-corners linear interpolation from n_in to n_out samples as
+    each output's two taps: (i0, i1, w0, w1), indices int64 and weights
+    float32 (n_out,); i1 = i0 + 1, or i0 with w1 = 0 where n_in is 1."""
     if n_in == 1:
-        return np.ones((n_out, 1), np.float32)
+        zero = np.zeros(n_out, np.int64)
+        return (zero, zero, np.ones(n_out, np.float32),
+                np.zeros(n_out, np.float32))
     src = np.linspace(0.0, n_in - 1.0, n_out)
     i0 = np.clip(np.floor(src).astype(int), 0, n_in - 2)
     f = (src - i0).astype(np.float32)
+    return i0, i0 + 1, 1.0 - f, f
+
+
+def _interp_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """Align-corners linear interpolation from n_in to n_out samples."""
+    i0, i1, w0, w1 = _interp_taps(n_in, n_out)
     m = np.zeros((n_out, n_in), np.float32)
-    m[np.arange(n_out), i0] = 1.0 - f
-    m[np.arange(n_out), i0 + 1] += f
+    m[np.arange(n_out), i0] = w0
+    m[np.arange(n_out), i1] += w1
     return m
 
 
@@ -186,11 +215,40 @@ def _upsample_ac(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Bilinear, align_corners=True, as two products, rows then columns:
     (B, h, w, C) -> (B, out_h, out_w, C), channels-last throughout."""
     B, h, w, c = x.shape
-    mh = _interp(h, out_h, x.device)
-    mw = _interp(w, out_w, x.device)
+    mh = _interp(h, out_h, x.device).to(x.dtype)
+    mw = _interp(w, out_w, x.device).to(x.dtype)
     rows = torch.matmul(mh, x.reshape(B, h, w * c))          # (B, H, w C)
     return torch.matmul(mw, rows.reshape(B * out_h, w, c)).reshape(
         B, out_h, out_w, c)
+
+
+def tap_table(n_ins, n_out: int) -> np.ndarray:
+    """`_interp_taps` of each n_in in `n_ins` to n_out, stacked as the
+    kernel reads them: int32 (len(n_ins) n_out, 4) rows (i0, i1, w0, w1),
+    the weights as their float32 bits."""
+    rows = []
+    for n_in in n_ins:
+        i0, i1, w0, w1 = _interp_taps(n_in, n_out)
+        rows.append(np.stack([i0.astype(np.int32), i1.astype(np.int32),
+                              w0.view(np.int32), w1.view(np.int32)], 1))
+    return np.concatenate(rows)
+
+
+_TAP_TABLES: Dict[tuple, torch.Tensor] = {}
+
+
+def _taps(levels: List[torch.Tensor]) -> torch.Tensor:
+    """The kernel's tap table for the levels' shapes, on their device,
+    uploaded once a shape and device: levels 2-4's rows, then their
+    columns."""
+    h, w = levels[0].shape[2:]
+    sizes = tuple(tuple(x.shape[2:]) for x in levels[1:])
+    key = (h, w, sizes, str(levels[0].device))
+    if key not in _TAP_TABLES:
+        _TAP_TABLES[key] = upload(np.concatenate(
+            [tap_table([s[0] for s in sizes], h),
+             tap_table([s[1] for s in sizes], w)]), levels[0].device)
+    return _TAP_TABLES[key]
 
 
 class _SDDH(nn.Module):
@@ -268,19 +326,28 @@ class ALIKEDN16Net(nn.Module):
         return [x1, x2, x3, x4]
 
     def head(self, levels: List[torch.Tensor]):
-        """The levels -> (score (B, H, W), the map (B, H, W, dim)), a
-        slice of images at a time: each level's 1x1 conv and SELU
-        upsampled into its quarter of the map's channels, the score head
-        on the slice (its 1x1 layer a product on the slice), then the
-        slice normalised in place."""
+        """The levels -> (score (B, H, W), the map (B, H, W, dim)): the
+        plain form for CPU tensors, the kernel for CUDA ones. Raises on
+        levels that are not float32 or not the backbone's shapes at H and
+        W multiples of 32, on any device."""
+        _check_levels(levels)
+        if _nvcc.route("aliked_head", levels[0].device) == "plain":
+            return self.head_plain(levels)[:2]
+        return self.head_kernel(levels)[:2]
+
+    def head_plain(self, levels: List[torch.Tensor]):
+        """The plain form: (score, the map, score1's output after its
+        SELU (B, 8, H, W)), a slice of images at a time: each level's 1x1
+        conv and SELU upsampled into its quarter of the map's channels,
+        score1 on the slice (a product on the slice), then the slice
+        normalised in place; then the rest of the score head. Any float
+        dtype."""
         B, _, h, w = levels[0].shape
         q = self.conv1.weight.shape[0]
         feat = levels[0].new_empty(B, h, w, 4 * q)
-        score = levels[0].new_empty(B, h, w)
-        step = max(1, _HEAD_PIXELS // (h * w))
+        s8 = levels[0].new_empty(B, self.score1.weight.shape[0], h, w)
         convs = (self.conv1, self.conv2, self.conv3, self.conv4)
-        for i0 in range(0, B, step):
-            sl = slice(i0, i0 + step)
+        for sl in _slices(B, h, w):
             for i, (conv, x) in enumerate(zip(convs, levels)):
                 a = F.selu(conv(x[sl])).permute(0, 2, 3, 1)
                 if i:
@@ -288,14 +355,50 @@ class ALIKEDN16Net(nn.Module):
                 feat[sl, ..., i * q:(i + 1) * q] = a
             f = feat[sl]
             s = torch.matmul(f, self.score1.weight[:, :, 0, 0].T)
-            s = F.selu(s).permute(0, 3, 1, 2).contiguous()
-            s = F.selu(self.score2(s))
-            s = F.selu(self.score3(s))
-            score[sl] = torch.sigmoid(self.score4(s)[:, 0])
+            s8[sl] = F.selu(s).permute(0, 3, 1, 2)
             f.div_(torch.clamp(torch.linalg.vector_norm(f, dim=-1,
                                                          keepdim=True),
                                min=1e-12))
-        return score, feat
+        return self._score_tail(s8), feat, s8
+
+    def head_kernel(self, levels: List[torch.Tensor]):
+        """The kernel form: `_launch_head`, then the score head's 3x3
+        layers and the sigmoid on its score1 output; (score, the map,
+        score1's output) as `head_plain`."""
+        feat, s8 = self._launch_head(levels)
+        return self._score_tail(s8), feat, s8
+
+    def _launch_head(self, levels: List[torch.Tensor]):
+        """One launch of `csrc/aliked_head.cu` on the current stream for
+        the whole batch -> (the map, score1's output after its SELU).
+        Counted on `aliked_head.launches`."""
+        x1, x2, x3, x4 = (x.contiguous() for x in levels)
+        B, _, h, w = x1.shape
+        wts = kernel_weights(self)
+        taps = _taps(levels)
+        # the levels' 1x1 convs and SELUs, channels-last, 32 channels each
+        scratch = x1.new_empty(B * 32 * sum(x.shape[2] * x.shape[3]
+                                            for x in levels[1:]))
+        feat = x1.new_empty(B, h, w, 4 * self.conv1.weight.shape[0])
+        s8 = x1.new_empty(B, self.score1.weight.shape[0], h, w)
+        _nvcc.launch("aliked_head", "aliked_head_launch", _HEAD_ARGTYPES,
+                     x1.device, x1.data_ptr(), x2.data_ptr(), x3.data_ptr(),
+                     x4.data_ptr(), wts.data_ptr(), taps.data_ptr(),
+                     scratch.data_ptr(), feat.data_ptr(), s8.data_ptr(), B,
+                     h, w)
+        del scratch    # the stream reuses it only after the kernels
+        return feat, s8
+
+    def _score_tail(self, s8: torch.Tensor) -> torch.Tensor:
+        """score1's output (B, 8, H, W) -> the score (B, H, W): score2-4,
+        their SELUs and the sigmoid, a slice of images at a time."""
+        B, _, h, w = s8.shape
+        score = s8.new_empty(B, h, w)
+        for sl in _slices(B, h, w):
+            s = F.selu(self.score2(s8[sl]))
+            s = F.selu(self.score3(s))
+            score[sl] = torch.sigmoid(self.score4(s)[:, 0])
+        return score
 
     def forward(self, image: torch.Tensor):
         with precision("highest"):
@@ -303,6 +406,86 @@ class ALIKEDN16Net(nn.Module):
                 levels = self.backbone(image)
             with span("aliked.head"):
                 return self.head(levels)
+
+
+_HEAD_ARGTYPES = (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 3 + (
+    ctypes.c_void_p,)
+# SELU's steepest slope, scale * alpha (below 0; scale above)
+_SELU_SLOPE = 1.0507009873554805 * 1.6732632423543772
+
+
+def _check_levels(levels: List[torch.Tensor]) -> None:
+    """The head's input: four float32 levels on one device, shaped as the
+    backbone gives them for H and W multiples of 32."""
+    if len(levels) != 4 or any(x.ndim != 4 for x in levels):
+        raise ValueError(f"aliked_head: need four (B, C, h, w) levels, got "
+                         f"{[tuple(x.shape) for x in levels]}")
+    dtypes = {x.dtype for x in levels}
+    if dtypes != {torch.float32}:
+        raise TypeError(f"aliked_head: need float32 levels, got "
+                        f"{sorted(map(str, dtypes))}")
+    if len({x.device for x in levels}) != 1:
+        raise ValueError("aliked_head: levels on several devices")
+    B, _, h, w = levels[0].shape
+    if h % 32 or w % 32:
+        raise ValueError(f"aliked_head: need H and W multiples of 32, got "
+                         f"{h}x{w}")
+    c = CFG_N16
+    want = [(B, c["c1"], h, w), (B, c["c2"], h // 2, w // 2),
+            (B, c["c3"], h // 8, w // 8), (B, c["c4"], h // 32, w // 32)]
+    got = [tuple(x.shape) for x in levels]
+    if got != want:
+        raise ValueError(f"aliked_head: need levels shaped {want}, got "
+                         f"{got}")
+
+
+def kernel_weights(net: ALIKEDN16Net) -> torch.Tensor:
+    """The head's weights as the kernel reads them, float32, contiguous:
+    conv1, score1, conv2, conv3, conv4, each (out, in) row-major."""
+    return torch.cat([m.weight.detach().float().reshape(-1) for m in (
+        net.conv1, net.score1, net.conv2, net.conv3, net.conv4)])
+
+
+def head_float64_answer_and_limit(net: ALIKEDN16Net,
+                                  levels: List[torch.Tensor]):
+    """The exact head (the plain form in float64) and how far from it the
+    kernel may be, as `ops.conv.float64_answer_and_limit` has it: for each
+    of "score", "feat" (the normalised map) and "s8" (score1's output),
+    `LIMIT_FACTOR` times the larger of the plain form's error in float32 on
+    the same operands and 2^-23 of the largest sum of magnitudes an output
+    is made of, which a float32 sum in any order costs: for the map, each
+    channel's 1x1 sum of |weight x input| (interpolated, at SELU's steepest
+    slope) over the pixel's norm; for s8, score1's sum of |weight x map
+    channel| at that slope; for the score, its largest value. A level or
+    tap off by one, a dropped SELU or a map left unnormalised moves the
+    outputs by far more. -> (answers, limits), two dicts by those names;
+    the answers float64."""
+    net64 = copy.deepcopy(net).double()
+    l64 = [x.double() for x in levels]
+    want = dict(zip(("score", "feat", "s8"), net64.head_plain(l64)))
+    with precision("highest"):
+        plain = dict(zip(("score", "feat", "s8"), net.head_plain(levels)))
+    err = {k: float((plain[k].double() - want[k]).abs().max()) for k in want}
+    del plain
+    h, w = levels[0].shape[2:]
+    unit, mag = [], []
+    for i, (conv, x) in enumerate(zip(
+            (net64.conv1, net64.conv2, net64.conv3, net64.conv4), l64)):
+        a = F.selu(conv(x)).permute(0, 2, 3, 1).contiguous()
+        m = F.conv2d(x.abs(), conv.weight.abs()).permute(0, 2, 3, 1)
+        unit.append(_upsample_ac(a, h, w) if i else a)
+        mag.append(_upsample_ac(m.contiguous(), h, w) if i else m)
+    f = torch.cat(unit, -1)                     # the unnormalised map
+    norm = torch.clamp(torch.linalg.vector_norm(f, dim=-1, keepdim=True),
+                       min=1e-12)
+    m = torch.cat(mag, -1)
+    sums = {"feat": _SELU_SLOPE * float((m / norm).max()),
+            "s8": _SELU_SLOPE * float((f.abs() @ net64.score1.weight[
+                :, :, 0, 0].abs().T).max()),
+            "score": float(want["score"].abs().max())}
+    limits = {k: LIMIT_FACTOR * max(err[k], 2.0 ** -23 * sums[k])
+              for k in want}
+    return want, limits
 
 
 class ALIKEDN16:
